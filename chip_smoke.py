@@ -1,0 +1,404 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+From the root of a checkout. It
+
+1. prints the card's name and power limit and builds every CUDA kernel
+   of the port from ``src/repro_torch/kernels/csrc`` (one nvcc per
+   source, started together);
+2. holds each kernel against its plain PyTorch version on the card, on
+   every (dtype, G, D) instantiation, on the JAX package's paged test
+   shapes, and on the main-path shapes of full-width smollm-360m, and
+   times kernel, plain version and a PyTorch library call at those
+   shapes with CUDA events, beside the least time the card could take;
+3. serves a generated workload through ``repro_torch.launch.serve`` at
+   the full width of smollm-360m (32 layers, d 960, 15/5 heads, bf16,
+   random weights from the seed) on two engine instances, and checks
+   that every request finished with prefix reuse, on the card, through
+   the kernel (its launch count = layers x model dispatches);
+4. checks the served outputs against the same engine on the CPU on a
+   small float32 config (token-identical);
+5. profiles a second, smaller full-width serve with torch.profiler:
+   device busy share, launches per step, the costliest kernels.
+
+Any failed check exits non-zero. The last line is the JSON result.
+Exits non-zero with no result when no CUDA device is present or when
+run outside a checkout of the repo.
+"""
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# NVIDIA H100 SXM data sheet: HBM3 rate and bf16 dense tensor-core rate
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+SERVE_ARGS = ["--arch", "smollm-360m", "--instances", "2", "--requests",
+              "16", "--max-context", "1024", "--device", "cuda"]
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        fail(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# kernel vs plain
+# ---------------------------------------------------------------------------
+
+def paged_inputs(torch, B, H, KH, PS, P, D, dtype, lens, seed):
+    """Random q and pool on the card; each lane gets P distinct pages
+    (page 0 stays the scratch page, as in the engine)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n_pages = B * P + 1
+    k = torch.randn(n_pages, PS, KH, D, generator=g, device="cuda")
+    v = torch.randn(n_pages, PS, KH, D, generator=g, device="cuda")
+    q = torch.randn(B, H, D, generator=g, device="cuda")
+    perm = torch.randperm(n_pages - 1, generator=g, device="cuda") + 1
+    pt = perm[:B * P].view(B, P).to(torch.int32).contiguous()
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return q.to(dtype), k.to(dtype), v.to(dtype), pt, lens
+
+
+def compare(torch, PA, name, inputs, tol):
+    got = PA.paged_decode_attention(*inputs)
+    exp = PA.paged_decode_attention_plain(*inputs)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    err = (got.float() - exp.float()).abs()
+    bound = tol["atol"] + tol["rtol"] * exp.float().abs()
+    check(bool((err <= bound).all()),
+          f"{name}: max |kernel - plain| {err.max().item():.3e} over "
+          f"tolerance {tol}")
+    return err.max().item()
+
+
+def time_ms(torch, fn, flush, n=30):
+    """Mean device time of fn over n launches, CUDA events around each
+    launch, the 50 MB L2 flushed before each (the engine finds the pool
+    cold: every layer has its own)."""
+    for _ in range(3):
+        fn()
+    total = 0.0
+    for _ in range(n):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / n
+
+
+def kernel_phase(torch, PA):
+    torch.manual_seed(0)
+    F32 = dict(atol=3e-5, rtol=1e-4)       # summation order only
+    BF16 = dict(atol=2e-2, rtol=0.0)       # one bf16 rounding of |x| < 4
+    worst = {}
+    # every built instantiation, small ragged case
+    for dt, tol in ((torch.float32, F32), (torch.bfloat16, BF16)):
+        for G in PA.GROUPS:
+            for i, D in enumerate(PA.HEAD_DIMS):
+                PS = (8, 16, 32)[(G + i) % 3]
+                KH = 2
+                inp = paged_inputs(torch, 3, G * KH, KH, PS, 4, D, dt,
+                                   [1, PS + 3, 4 * PS], seed=G * 100 + D)
+                e = compare(torch, PA, f"{dt} G{G} D{D} PS{PS}", inp, tol)
+                worst[str(dt)] = max(worst.get(str(dt), 0.0), e)
+    print(f"kernel: all {2 * len(PA.GROUPS) * len(PA.HEAD_DIMS)} "
+          f"(dtype, G, D) instantiations agree with the plain version; "
+          f"max err f32 {worst['torch.float32']:.3e}, "
+          f"bf16 {worst['torch.bfloat16']:.3e}")
+    # the JAX package's paged cases (tests/test_kernels.py), f32
+    cases = [(3, 8, 2, 16, 4, 64), (2, 4, 4, 8, 6, 32),
+             (1, 16, 8, 32, 3, 128)]
+    for j, (B, H, KH, PS, P, D) in enumerate(cases):
+        lens = torch.randint(1, PS * P + 1, (B,)).tolist()
+        e = compare(torch, PA, f"PAGED_CASES[{j}]",
+                    paged_inputs(torch, B, H, KH, PS, P, D, torch.float32,
+                                 lens, seed=j), F32)
+        print(f"kernel: PAGED_CASES[{j}] B{B} H{H} KH{KH} PS{PS} P{P} D{D} "
+              f"lens={lens} max_err={e:.3e}")
+    for j, lens in enumerate([[3, 16, 21, 64], [1, 8, 48, 63],
+                              [16, 32, 5, 17]]):
+        e = compare(torch, PA, f"PAGED_EDGE_LENS[{j}]",
+                    paged_inputs(torch, 4, 8, 2, 16, 4, 32, torch.float32,
+                                 lens, seed=10 + j), F32)
+        print(f"kernel: PAGED_EDGE_LENS[{j}] lens={lens} max_err={e:.3e}")
+
+    # main-path shapes: full smollm-360m decode half, bf16 pool; 128-page
+    # rows (context 2048) at B 1, 8, 32, and the serve phase's own shape
+    # (8 decode lanes, 64-page rows, prompts of 341 + up to 8 tokens)
+    H, KH, D, PS = 15, 5, 64, 16
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    rows = []
+    for B, P, max_len in ((1, 128, 2048), (8, 128, 2048), (32, 128, 2048),
+                          (8, 64, 349)):
+        rng = torch.Generator().manual_seed(B * P)
+        lens = torch.randint(1, max_len + 1, (B,), generator=rng)
+        lens[0] = max_len
+        if B > 2:
+            lens[1] = 16 * (max_len // 64)       # page-exact boundary
+        lens = lens.tolist()
+        inp = paged_inputs(torch, B, H, KH, PS, P, D, torch.bfloat16, lens,
+                           seed=1000 + B)
+        err = compare(torch, PA, f"main path B{B}", inp, BF16)
+        q, k, v, pt, ln = inp
+        S = P * PS
+        idx = pt.long()
+        kg = k[idx].reshape(B, S, KH, D).permute(0, 2, 1, 3).contiguous()
+        vg = v[idx].reshape(B, S, KH, D).permute(0, 2, 1, 3).contiguous()
+        mask = (torch.arange(S, device="cuda")[None, :]
+                < ln[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+        gqa = {}
+        if tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5):
+            gqa = {"enable_gqa": True}
+        else:                       # no GQA in SDPA: repeat the KV heads
+            kg = kg.repeat_interleave(H // KH, dim=1)
+            vg = vg.repeat_interleave(H // KH, dim=1)
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q4, kg, vg, attn_mask=mask, **gqa)
+        lib_out = library()[:, :, 0]
+        check(bool(((lib_out.float() - PA.paged_decode_attention_plain(
+            *inp).float()).abs() <= 2e-2).all()),
+            f"main path B{B}: library yardstick disagrees")
+        kernel_ms = time_ms(torch, lambda: PA.paged_decode_attention(*inp),
+                            flush)
+        plain_ms = time_ms(torch,
+                           lambda: PA.paged_decode_attention_plain(*inp),
+                           flush)
+        library_ms = time_ms(torch, library, flush)
+        ntok = sum(lens)
+        kv_bytes = ntok * KH * D * 2 * 2
+        other = (2 * B * H * D * 2 + B * 4
+                 + sum(math.ceil(n / PS) for n in lens) * 4)
+        bytes_ms = (kv_bytes + other) / HBM_BYTES_PER_S * 1e3
+        ops_ms = 4 * ntok * H * D / BF16_FLOPS * 1e3
+        row = dict(B=B, P=P, lens_max=max(lens), tokens=ntok,
+                   max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   hbm_frac=max(bytes_ms, ops_ms) / kernel_ms,
+                   grid_blocks=B * KH)
+        rows.append(row)
+        print("kernel: main path " + json.dumps(row))
+    blocks, regs, smem = PA.occupancy(torch.bfloat16, H // KH, D)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"kernel: occupancy bf16 G{H // KH} D{D}: {blocks} resident "
+          f"blocks/SM x 128 threads ({blocks * 4} of 64 warps), {regs} "
+          f"registers/thread, {smem} B static shared; grid B*KH = "
+          f"{', '.join(str(r['grid_blocks']) for r in rows[:3])} blocks on "
+          f"{sms} SMs")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the main path: full-width serve
+# ---------------------------------------------------------------------------
+
+def serve_phase(torch, PA, serve):
+    args = serve.parse_args(SERVE_ARGS)
+    torch.cuda.reset_peak_memory_stats()
+    PA.paged_decode_attention.launches = 0
+    res = serve.run(args)
+    launches = PA.paged_decode_attention.launches
+    serve.report(args, res)
+    cl, cfg = res["cluster"], res["cfg"]
+    check(cfg.n_layers == 32 and cfg.d_model == 960 and cfg.n_heads == 15
+          and cfg.n_kv_heads == 5 and cfg.vocab_size == 49152
+          and cfg.dtype == "bfloat16", "serve did not run at full width")
+    check(len(res["done"]) == 16 and all(
+        r.state.value == "finished" for r in res["done"]),
+        f"finished {len(res['done'])}/16")
+    for r in res["done"]:
+        check(len(r.output_tokens) == r.max_new_tokens
+              and all(0 <= t < cfg.vocab_size for t in r.output_tokens),
+              f"request {r.request_id}: bad outputs {r.output_tokens}")
+    engines = list(cl.engines.values())
+    reused = sum(e.stats["reused_tokens"] for e in engines)
+    check(reused > 0, "no prefix reuse")
+    tok = res["params"]["embed"]["tok"]
+    check(tok.is_cuda, "params not on the card")
+    for e in engines:
+        check(e.params["embed"]["tok"].is_cuda, "engine params not on card")
+        check(all(kv[n].is_cuda for g in e.pages.values()
+                  for kv in g.values() for n in ("k", "v")),
+              "pool not on the card")
+    dispatches = sum(e.stats["model_dispatches"] for e in engines)
+    iters = sum(e.stats["iterations"] for e in engines)
+    check(launches > 0, "the paged decode kernel never launched")
+    check(launches == cfg.n_layers * dispatches,
+          f"kernel launches {launches} != {cfg.n_layers} x "
+          f"{dispatches} model dispatches")
+    wall = res["wall"]
+    out = dict(wall_s=wall, engine_steps=iters, steps_per_s=iters / wall,
+               model_dispatches=dispatches, kernel_launches=launches,
+               reused_tokens=reused,
+               prefilled_tokens=sum(e.stats["prefilled_tokens"]
+                                    for e in engines),
+               decode_steps=sum(e.stats["decode_steps"] for e in engines),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print("serve: " + json.dumps(out))
+    return launches
+
+
+def profile_phase(torch, serve):
+    """Where the time goes: a second, smaller full-width serve (4
+    requests) with torch.profiler (device activity only, to keep the
+    trace small) over ``cl.run`` only. Reports the device busy share
+    (kernel time / profiled wall), kernel launches per engine step and
+    the kernels that take the most device time. Instrumentation only:
+    nothing here is the main path's measurement."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    args = serve.parse_args(SERVE_ARGS[:5] + ["4"] + SERVE_ARGS[6:])
+    res = serve.setup(args)
+    cl = res["cluster"]
+    torch.cuda.synchronize()
+    t_prof = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        done = cl.run(res["requests"], dt=0.01)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(len(done) == 4, "profiled serve did not finish")
+    steps = sum(e.stats["iterations"] for e in cl.engines.values())
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        kernels.append((us, e.count, e.key))
+    busy_ms = sum(k[0] for k in kernels) / 1e3
+    if busy_ms == 0.0:
+        print("profile: the profiler recorded no device time "
+              "(device busy share not measured)")
+        return
+    kernels.sort(reverse=True)
+    out = dict(profiled_wall_s=wall,
+               profiler_total_s=time.perf_counter() - t_prof,
+               engine_steps=steps,
+               device_busy_ms=busy_ms,
+               device_busy_share=busy_ms / (wall * 1e3),
+               kernel_launches_per_step=sum(k[1] for k in kernels) / steps,
+               top=[dict(kernel=k[2][:60], ms=k[0] / 1e3, calls=k[1])
+                    for k in kernels[:8]])
+    print("profile: " + json.dumps(out))
+
+
+def reference_phase(torch, configs, bridge, Engine, EngineConfig, Request):
+    """The engine on the card against the same engine on the CPU, small
+    float32 config, same parameters and stream: token-identical."""
+    import dataclasses
+    cfg = dataclasses.replace(configs.reduced(configs.ARCHS["smollm-360m"]),
+                              n_layers=2, dtype="float32")
+    params = bridge.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    shared = torch.randint(1, cfg.vocab_size, (29,), generator=gen).tolist()
+    prompts = [tuple(shared + torch.randint(1, cfg.vocab_size, (8,),
+                                            generator=gen).tolist())
+               for _ in range(6)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(cfg, params, EngineConfig(
+            max_context=64, chunk_size=16, max_batch_tokens=64,
+            capacity_tokens=4096, page_size=16), device=dev)
+        reqs = [Request(tokens=p, max_new_tokens=4) for p in prompts]
+        now, done = 0.0, []
+        for r in reqs[:2]:
+            eng.scheduler.enqueue(r, now)
+        while len(done) < 2:
+            done += eng.step(now)
+            now += 0.01
+        for r in reqs[2:]:
+            eng.scheduler.enqueue(r, now)
+        while len(done) < len(reqs):
+            done += eng.step(now)
+            now += 0.01
+        eng.pool.check_invariants()
+        check(eng.stats["reused_tokens"] > 0, f"{dev}: no reuse")
+        outs[dev] = [list(r.output_tokens) for r in reqs]
+    check(outs["cuda"] == outs["cpu"],
+          f"card and CPU engines disagree: {outs['cuda']} vs {outs['cpu']}")
+    print(f"reference: reduced float32 engine on the card == on the CPU, "
+          f"{len(prompts)} requests token-identical")
+
+
+def main() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this smoke run needs an NVIDIA GPU")
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail(f"run from the root of a checkout: {SRC / 'repro_torch'} "
+             "is missing")
+    sys.path.insert(0, str(SRC))
+    from repro_torch import bridge, configs, full_precision_matmuls
+    from repro_torch.core.request import Request
+    from repro_torch.kernels import build
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    full_precision_matmuls()
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} "
+          f"count {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    print(f"build: {len(libs)} kernel libraries in "
+          f"{time.perf_counter() - t0:.1f}s "
+          f"(nvcc {', '.join(f'{k} {v:.1f}s' for k, v in build.build_seconds.items())})")
+
+    rows = kernel_phase(torch, PA)
+    launches = serve_phase(torch, PA, serve)
+    reference_phase(torch, configs, bridge, Engine, EngineConfig, Request)
+    profile_phase(torch, serve)
+
+    main_row = next(r for r in rows if r["B"] == 8 and r["P"] == 128)
+    kernels = [{
+        "name": "paged_decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:58",
+        "launches": launches, "max_abs_err": main_row["max_abs_err"],
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"]}]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

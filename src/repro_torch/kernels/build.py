@@ -1,0 +1,119 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
+compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library
+under ``build/kernels/`` at the root of the checkout and loaded with
+``ctypes``. The library's file name carries a hash of the source and the
+flags, so an edited source is rebuilt and a stale library is never
+loaded. Nothing here runs at import time: the CPU tests import every
+module, and ``nvcc`` is needed only once a CUDA tensor reaches a kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+# wall seconds each library took to build in this process (0.0 when an
+# earlier build of the same source was found), read by chip_smoke.py
+build_seconds: Dict[str, float] = {}
+
+
+def sources() -> list:
+    """Names of every kernel source under ``csrc/``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                           "the CUDA toolkit (put nvcc on PATH or set "
+                           "CUDA_HOME)")
+    return path
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lives for this source."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+    """Compile every named source (default: all) that has no library
+    for its exact source yet, one ``nvcc`` per source, all started
+    together. Each library is written under a temporary name and
+    renamed, so a concurrent builder never loads a half-written file.
+    The compiler's ``-Xptxas -v`` report (registers, shared memory and
+    spills per instantiation) is kept beside the library as ``.log``."""
+    names = list(sources() if names is None else names)
+    out = {n: library_path(n) for n in names}
+    todo = [n for n in names if not out[n].exists()]
+    for n in names:
+        if n not in todo:
+            build_seconds.setdefault(n, 0.0)
+    if not todo:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    running = []
+    for n in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{n}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((n, tmp, proc, time.perf_counter()))
+    failed = []
+    for n, tmp, proc, t0 in running:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed for {n}.cu:\n{log}")
+            continue
+        out[n].with_suffix(".log").write_text(log)
+        os.replace(tmp, out[n])
+        build_seconds[n] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_all([name])[name]))
+            _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise when a C entry point returned a nonzero cudaError_t."""
+    if err != 0:
+        fn = lib.repro_cuda_error_string
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_char_p
+        raise RuntimeError(f"{what}: CUDA error {err} "
+                           f"({fn(err).decode()})")

@@ -1,0 +1,155 @@
+"""Paged decode attention: the hand-written Hopper kernel and its plain
+PyTorch version.
+
+Replaces the Pallas TPU kernel ``repro/kernels/paged_attention.py::
+paged_decode_attention`` (grid (B, KH, P) of per-page softmax partials
+merged by ``lse_merge``). The CUDA source is ``csrc/paged_attention.cu``;
+its header says what bounds the kernel on an H100 (memory: the KV bytes
+the lanes need, sum_b len_b * KH * D * 2 * itemsize) and what its design
+does about that (reads the pool in place, one block per (KV head, lane)
+holding the G query rows, visits only the lane's first ceil(len/PS)
+pages, online softmax in f32, writes the output directly).
+
+``paged_decode_attention`` takes the plain version only for tensors that
+lie on the CPU. For CUDA tensors it launches the kernel or raises; it
+never falls back. ``paged_decode_attention.launches`` counts kernel
+launches (never plain-version calls).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from . import build
+
+GROUPS = (1, 2, 3, 4, 8)            # G = H // KH the kernel is built for
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_LIB = "paged_attention"
+
+
+def paged_decode_attention_plain(q, k_pages, v_pages, page_table, lens):
+    """The kernel's function in plain PyTorch, f32 throughout.
+
+    q: [B, H, D]; k/v_pages: [n_pages, PS, KH, D]; page_table: [B, P]
+    page ids (entries past a lane's length may point anywhere, they are
+    masked); lens: [B] valid token counts. Returns [B, H, D] in q's
+    dtype. A lane with len 0 returns 0, as the Pallas kernel does."""
+    B, H, D = q.shape
+    _, PS, KH, _ = k_pages.shape
+    P = page_table.shape[1]
+    G = H // KH
+    idx = page_table.long()
+    k = k_pages[idx].reshape(B, P * PS, KH, D).float()
+    v = v_pages[idx].reshape(B, P * PS, KH, D).float()
+    qg = q.reshape(B, KH, G, D).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k) * (D ** -0.5)
+    mask = (torch.arange(P * PS, device=q.device)[None, :]
+            < lens.to(q.device)[:, None])                     # [B, S]
+    s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
+    w = torch.softmax(s, dim=-1)
+    w = torch.where(mask.any(-1)[:, None, None, None], w, 0.0)
+    o = torch.einsum("bhgk,bkhd->bhgd", w, v)
+    return o.reshape(B, H, D).to(q.dtype)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load(_LIB)
+    fn = lib.repro_paged_decode_attention
+    if fn.argtypes is None:             # first load: declare the C types
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        occ = lib.repro_paged_decode_occupancy
+        occ.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
+        occ.restype = ctypes.c_int
+    return lib
+
+
+def _check_cuda(q, k_pages, v_pages, page_table, lens) -> None:
+    """Raise on anything the kernel does not take."""
+    dev = q.device
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
+                    ("page_table", page_table), ("lens", lens)):
+        if t.device != dev:
+            raise ValueError(f"paged_decode_attention: {name} on {t.device}, "
+                             f"q on {dev}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"paged_decode_attention: dtype {q.dtype} not in "
+                        f"{tuple(_DTYPE_CODE)}")
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError("paged_decode_attention: q, k_pages and v_pages "
+                        "must share one dtype")
+    if page_table.dtype != torch.int32 or lens.dtype != torch.int32:
+        raise TypeError("paged_decode_attention: page_table and lens must "
+                        "be int32")
+    if q.dim() != 3 or k_pages.dim() != 4 or page_table.dim() != 2 \
+            or lens.dim() != 1:
+        raise ValueError("paged_decode_attention: expected q [B,H,D], pages "
+                         "[n_pages,PS,KH,D], page_table [B,P], lens [B]")
+    B, H, D = q.shape
+    _, _, KH, Dk = k_pages.shape
+    if v_pages.shape != k_pages.shape or Dk != D:
+        raise ValueError(f"paged_decode_attention: pages {tuple(k_pages.shape)}"
+                         f"/{tuple(v_pages.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if page_table.shape[0] != B or lens.shape[0] != B:
+        raise ValueError("paged_decode_attention: page_table/lens batch "
+                         "differs from q")
+    if H % KH or H // KH not in GROUPS or D not in HEAD_DIMS:
+        raise ValueError(f"paged_decode_attention: G = {H}/{KH}, D = {D} not "
+                         f"built (G in {GROUPS}, D in {HEAD_DIMS})")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("page_table", page_table), ("lens", lens)):
+        if not t.is_contiguous():
+            raise ValueError(f"paged_decode_attention: {name} not contiguous")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"paged_decode_attention: {name} not 16-byte "
+                             "aligned")
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, lens):
+    """Decode attention over the shared page pool; see the module doc.
+    Same arguments and result as ``paged_decode_attention_plain``."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pages, v_pages, page_table,
+                                            lens)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention: no kernel for "
+                         f"{q.device.type} tensors")
+    _check_cuda(q, k_pages, v_pages, page_table, lens)
+    B, H, D = q.shape
+    n_pages, PS, KH, _ = k_pages.shape
+    P = page_table.shape[1]
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    lib = _lib()
+    err = lib.repro_paged_decode_attention(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        B, H, KH, D, P, PS, n_pages, _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, err, "paged_decode_attention launch")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+
+
+def occupancy(dtype: torch.dtype, G: int, D: int) -> Tuple[int, int, int]:
+    """(resident blocks per SM, registers per thread, static shared
+    bytes) of the kernel instantiated for (dtype, G, D) on the current
+    card."""
+    lib = _lib()
+    blocks, regs, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = lib.repro_paged_decode_occupancy(
+        _DTYPE_CODE[dtype], G, D, ctypes.byref(blocks), ctypes.byref(regs),
+        ctypes.byref(smem))
+    build.check(lib, err, "paged_decode_attention occupancy")
+    return blocks.value, regs.value, smem.value

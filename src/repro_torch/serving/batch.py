@@ -1,0 +1,68 @@
+"""Host/device batch split for the paged data plane (counterpart of the
+JAX package's ``serving/batch.py``).
+
+  * ModelWorkerBatch — the numpy subset the model forward consumes,
+    already padded/bucketed to its (Lc, C, Ld) shape. Host-only.
+  * ForwardBatch — the same arrays on the model's device, produced by
+    ``lower`` in ONE host-to-device copy: the int32 arrays are packed
+    into one (pinned, on a CUDA target) host buffer, copied once, and
+    the fields are views into the device copy.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+from typing import Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["ModelWorkerBatch", "ForwardBatch"]
+
+
+@dataclass
+class ModelWorkerBatch:
+    """Host-side (numpy int32) model inputs for one fused iteration.
+    Pure-decode steps leave the chunk half at Lc=0."""
+    # prefill-chunk half: [Lc, C] tokens, per-lane start/len, [Lc, P]
+    # page-table rows (padding lanes carry all-scratch rows)
+    chunk_tokens: np.ndarray
+    chunk_start: np.ndarray
+    chunk_len: np.ndarray
+    chunk_page_table: np.ndarray
+    # decode half: [Ld] fed tokens / context positions, [Ld, P] rows
+    dec_tokens: np.ndarray
+    dec_pos: np.ndarray
+    dec_page_table: np.ndarray
+
+    def arrays(self) -> Tuple[np.ndarray, ...]:
+        return tuple(getattr(self, f.name) for f in fields(self))
+
+
+@dataclass
+class ForwardBatch:
+    """Device-side twin of ``ModelWorkerBatch``: same fields, int32
+    tensors that are views into one device buffer."""
+    chunk_tokens: torch.Tensor
+    chunk_start: torch.Tensor
+    chunk_len: torch.Tensor
+    chunk_page_table: torch.Tensor
+    dec_tokens: torch.Tensor
+    dec_pos: torch.Tensor
+    dec_page_table: torch.Tensor
+
+    @classmethod
+    def lower(cls, wb: ModelWorkerBatch, device) -> "ForwardBatch":
+        """ONE host-to-device copy for the whole worker batch."""
+        device = torch.device(device)
+        arrs = [np.ascontiguousarray(a, dtype=np.int32) for a in wb.arrays()]
+        sizes = [a.size for a in arrs]
+        host = torch.empty(sum(sizes), dtype=torch.int32,
+                           pin_memory=device.type == "cuda")
+        np.concatenate([a.reshape(-1) for a in arrs], out=host.numpy())
+        dev = host.to(device, non_blocking=True)
+        views, ofs = [], 0
+        for a, n in zip(arrs, sizes):
+            views.append(dev[ofs:ofs + n].view(a.shape))
+            ofs += n
+        return cls(*views)

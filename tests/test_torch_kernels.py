@@ -1,0 +1,148 @@
+"""The port's paged decode attention against the JAX package.
+
+On the CPU the wrapper runs its plain PyTorch version, which must match
+the Pallas kernel (interpret mode) and the JAX gather path on the same
+inputs, made from a seed with numpy. The CUDA kernel itself runs only on
+a card: its tests are in tests/test_torch_cuda.py.
+
+Tolerances: float32 inputs, atol 3e-5 / rtol 1e-4 (the JAX package's
+own kernel tolerance; the two sides sum in different orders).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ref as jref
+from repro.kernels.paged_attention import paged_decode_attention as jpaged
+from repro.models.attention import paged_attention as jgather
+from repro_torch.kernels import build, ref
+from repro_torch.kernels import paged_attention as PA
+
+torch.set_num_threads(1)
+
+# the JAX package's own cases (tests/test_kernels.py): (B, H, KH, page,
+# P, n_pages, D) and the ragged page-boundary lens
+PAGED_CASES = [(3, 8, 2, 16, 4, 32, 64), (2, 4, 4, 8, 6, 24, 32),
+               (1, 16, 8, 32, 3, 16, 128)]
+PAGED_EDGE_LENS = [[3, 16, 21, 64], [1, 8, 48, 63], [16, 32, 5, 17]]
+
+
+def _inputs(B, H, KH, page, P, n_pages, D, seed, lens=None):
+    rng = np.random.default_rng(seed)
+    k = rng.standard_normal((n_pages, page, KH, D)).astype(np.float32)
+    v = rng.standard_normal((n_pages, page, KH, D)).astype(np.float32)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    pt = np.stack([rng.choice(n_pages, P, replace=False)
+                   for _ in range(B)]).astype(np.int32)
+    if lens is None:
+        lens = rng.integers(1, page * P + 1, B)
+    return q, k, v, pt, np.asarray(lens, np.int32)
+
+
+def _port(q, k, v, pt, lens):
+    return PA.paged_decode_attention(*(torch.from_numpy(a) for a in
+                                       (q, k, v, pt, lens))).numpy()
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_plain_matches_pallas_kernel(case):
+    q, k, v, pt, lens = _inputs(*case, seed=case[0])
+    before = PA.paged_decode_attention.launches
+    got = _port(q, k, v, pt, lens)
+    assert PA.paged_decode_attention.launches == before, \
+        "a CPU tensor must take the plain version, never count a launch"
+    exp = jpaged(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                 jnp.asarray(pt), jnp.asarray(lens), interpret=True)
+    np.testing.assert_allclose(got, np.asarray(exp), atol=3e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("lens", PAGED_EDGE_LENS)
+def test_plain_matches_pallas_kernel_ragged_lens(lens):
+    q, k, v, pt, lens = _inputs(len(lens), 8, 2, 16, 4, 24, 32, seed=7,
+                                lens=lens)
+    got = _port(q, k, v, pt, lens)
+    exp = jpaged(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                 jnp.asarray(pt), jnp.asarray(lens), interpret=True)
+    np.testing.assert_allclose(got, np.asarray(exp), atol=3e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_plain_matches_jax_gather_path(case):
+    """The JAX engine's CPU path (models/attention.paged_attention
+    'gather'). No lane has len 0, where the two references differ."""
+    q, k, v, pt, lens = _inputs(*case, seed=11 + case[0])
+    got = _port(q, k, v, pt, lens)
+    exp = jgather(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  jnp.asarray(pt), jnp.asarray(lens), impl="gather")
+    np.testing.assert_allclose(got, np.asarray(exp), atol=3e-5, rtol=1e-4)
+
+
+def test_plain_len_zero_follows_pallas_kernel():
+    """A fully masked lane returns 0, as the Pallas kernel does (the JAX
+    gather path returns the mean of V there; the engine never asks)."""
+    q, k, v, pt, lens = _inputs(2, 4, 2, 8, 3, 12, 16, seed=3,
+                                lens=[0, 5])
+    got = _port(q, k, v, pt, lens)
+    exp = jpaged(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                 jnp.asarray(pt), jnp.asarray(lens), interpret=True)
+    np.testing.assert_allclose(got, np.asarray(exp), atol=3e-5, rtol=1e-4)
+    assert not got[0].any()
+
+
+def test_decode_attention_ref_matches_jax():
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((3, 6, 32)).astype(np.float32)
+    k = rng.standard_normal((3, 2, 40, 32)).astype(np.float32)
+    v = rng.standard_normal((3, 2, 40, 32)).astype(np.float32)
+    lens = np.array([1, 17, 40], np.int32)
+    got = ref.decode_attention_ref(*(torch.from_numpy(a)
+                                     for a in (q, k, v, lens))).numpy()
+    exp = jref.decode_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), jnp.asarray(lens))
+    np.testing.assert_allclose(got, np.asarray(exp), atol=3e-5, rtol=1e-4)
+
+
+def _cpu_case(dtype=torch.float32, G=2, D=32, pt_dtype=torch.int32):
+    B, KH, PS, n = 2, 2, 8, 6
+    q = torch.zeros(B, G * KH, D, dtype=dtype)
+    k = torch.zeros(n, PS, KH, D, dtype=dtype)
+    pt = torch.zeros(B, 3, dtype=pt_dtype)
+    lens = torch.ones(B, dtype=torch.int32)
+    return q, k, k.clone(), pt, lens
+
+
+@pytest.mark.parametrize("bad,err", [
+    (dict(dtype=torch.float16), TypeError),
+    (dict(pt_dtype=torch.int64), TypeError),
+    (dict(G=5), ValueError),
+    (dict(D=48), ValueError),
+])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad, err):
+    with pytest.raises(err):
+        PA._check_cuda(*_cpu_case(**bad))
+
+
+def test_wrapper_rejects_non_contiguous_and_foreign_devices():
+    q, k, v, pt, lens = _cpu_case()
+    PA._check_cuda(q, k, v, pt, lens)                   # accepted as is
+    with pytest.raises(ValueError):
+        PA._check_cuda(q, k.transpose(0, 1).contiguous().transpose(0, 1),
+                       v, pt, lens)
+    with pytest.raises(ValueError):
+        PA.paged_decode_attention(*(t.to("meta") for t in
+                                    (q, k, v, pt, lens)))
+
+
+def test_build_rebuilds_when_the_source_changes(tmp_path, monkeypatch):
+    """The library name carries the source hash; nvcc is not needed to
+    name it."""
+    assert "paged_attention" in build.sources()
+    before = build.library_path("paged_attention")
+    assert before.parent == build.BUILD_DIR
+    src = tmp_path / "paged_attention.cu"
+    src.write_text((build.CSRC / "paged_attention.cu").read_text() + "\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert build.library_path("paged_attention") != before
