@@ -13,14 +13,21 @@ From the root of a checkout. It
    shapes, and on the main-path shapes of full-width smollm-360m, and
    times kernel, plain version and a PyTorch library call at those
    shapes with CUDA events, beside the least time the card could take;
-3. serves a generated workload through ``repro_torch.launch.serve`` at
+3. drives the kernel library (``repro_torch.kernels.bench.run``, the
+   counterpart of the JAX package's ``benchmarks/bench_kernels.py``)
+   on the card with every launch count at 0, holds the split-K decode,
+   shared-prefix and flash kernels against their plain versions on every
+   built instantiation and on the JAX package's test cases, and times
+   each at full smollm-360m and mistral-7b head widths beside its bound,
+   its plain version and a PyTorch yardstick;
+4. serves a generated workload through ``repro_torch.launch.serve`` at
    the full width of smollm-360m (32 layers, d 960, 15/5 heads, bf16,
    random weights from the seed) on two engine instances, and checks
    that every request finished with prefix reuse, on the card, through
    the kernel (its launch count = layers x model dispatches);
-4. checks the served outputs against the same engine on the CPU on a
+5. checks the served outputs against the same engine on the CPU on a
    small float32 config (token-identical);
-5. profiles a second, smaller full-width serve with torch.profiler:
+6. profiles a second, smaller full-width serve with torch.profiler:
    device busy share, launches per step, the costliest kernels.
 
 Any failed check exits non-zero. The last line is the JSON result.
@@ -28,6 +35,9 @@ Exits non-zero with no result when no CUDA device is present or when
 run outside a checkout of the repo.
 """
 
+import contextlib
+import importlib
+import io
 import json
 import math
 import subprocess
@@ -41,6 +51,7 @@ SRC = ROOT / "src"
 # NVIDIA H100 SXM data sheet: HBM3 rate and bf16 dense tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+SPIN_CYCLES = 2_000_000        # ~1 ms at the H100's 1.98 GHz boost clock
 SERVE_ARGS = ["--arch", "smollm-360m", "--instances", "2", "--requests",
               "16", "--max-context", "1024", "--device", "cuda"]
 
@@ -98,12 +109,17 @@ def compare(torch, PA, name, inputs, tol):
 def time_ms(torch, fn, flush, n=30):
     """Mean device time of fn over n launches, CUDA events around each
     launch, the 50 MB L2 flushed before each (the engine finds the pool
-    cold: every layer has its own)."""
+    cold: every layer has its own). A spin kernel of about 1 ms is queued
+    ahead of each timed call, so the device is still busy while the host
+    enqueues the call: the events then time the device's work, not the
+    host's launch gaps (which made short calls read up to 2.8x slower on a
+    slower host)."""
     for _ in range(3):
         fn()
     total = 0.0
     for _ in range(n):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -217,6 +233,269 @@ def kernel_phase(torch, PA):
           f"{', '.join(str(r['grid_blocks']) for r in rows[:3])} blocks on "
           f"{sms} SMs")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the kernel library: split-K decode, shared-prefix decode, causal flash
+# ---------------------------------------------------------------------------
+
+F32 = dict(atol=3e-5, rtol=1e-4)           # summation order only
+BF16 = dict(atol=2e-2, rtol=0.0)           # one bf16 rounding of |x| < 4
+
+
+def close(torch, name, got, exp, tol):
+    """Max |got - exp|, after failing unless every element is finite and
+    within atol + rtol * |exp|."""
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite")
+    err = (got.float() - exp.float()).abs()
+    bound = tol["atol"] + tol["rtol"] * exp.float().abs()
+    check(bool((err <= bound).all()),
+          f"{name}: max |kernel - plain| {err.max().item():.3e} over "
+          f"tolerance {tol}")
+    return err.max().item()
+
+
+def rand(torch, g, dtype, *shape):
+    return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+
+def ragged(torch, g, n, hi):
+    """n lengths in [1, hi], the first hi (one full lane)."""
+    lens = torch.randint(1, hi + 1, (n,), generator=g, device="cuda")
+    lens[0] = hi
+    return lens.to(torch.int32)
+
+
+def visible_pairs(Sq, Skv, causal, window):
+    """(query, key) pairs the flash masks let through, per (lane, head)."""
+    n = 0
+    for qp in range(Sq):
+        hi = min(qp + 1, Skv) if causal else Skv
+        lo = max(0, qp - window + 1) if window else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def bound(bytes_, flops):
+    b_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    f_ms = flops / BF16_FLOPS * 1e3
+    return max(b_ms, f_ms), ("bytes" if b_ms >= f_ms else "operations")
+
+
+def library_phase(torch, bench, DA, PF, FA):
+    """bench: the library's benchmark entry point; DA, PF, FA: the
+    decode, prefix and flash kernel modules. Returns the launch counts of
+    bench.run and the full-width rows for the JSON line."""
+    from repro_torch.kernels.checks import GROUPS, HEAD_DIMS
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dec, dec_plain = DA.decode_attention, DA.decode_attention_plain
+    pre, pre_plain = PF.prefix_attention, PF.prefix_attention_plain
+    part, part_plain = PF.prefix_partial, PF.prefix_partial_plain
+    fla, fla_plain = FA.flash_attention, FA.flash_attention_plain
+
+    # 1. the slice's main path: the library's bench.run, counts from 0
+    dec.launches = part.launches = fla.launches = 0
+    t0 = time.perf_counter()
+    printed = io.StringIO()        # its JSON rows, prefixed below: the
+    with contextlib.redirect_stdout(printed):  # result lines stay last
+        rows = bench.run(device="cuda")
+    wall = time.perf_counter() - t0
+    for line in printed.getvalue().splitlines():
+        print(f"library: bench {line}")
+    launches = {"decode": dec.launches, "prefix": part.launches,
+                "flash": fla.launches}
+    for kind, n in launches.items():
+        want = sum(r["kernel"] == kind for r in rows)
+        check(n > 0 and n == want,
+              f"bench.run: {kind} kernel launched {n} times for {want} rows")
+    print(f"library: bench.run(device='cuda') {len(rows)} rows all ok in "
+          f"{wall:.2f}s, max err "
+          f"{max(r['max_err'] for r in rows):.3e}; launches {launches}")
+
+    # 2. every built instantiation, then the JAX package's cases (f32)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    worst = {}
+    for dt, tol in ((torch.float32, F32), (torch.bfloat16, BF16)):
+        for D in HEAD_DIMS:
+            q, k, v = (rand(torch, g, dt, 2, 4, 100, D),
+                       rand(torch, g, dt, 2, 2, 130, D),
+                       rand(torch, g, dt, 2, 2, 130, D))
+            for win, kv_len in ((0, None), (24, 111)):
+                e = close(torch, f"flash {dt} D{D} w{win}",
+                          fla(q, k, v, window=win, kv_len=kv_len),
+                          fla_plain(q, k, v, window=win, kv_len=kv_len),
+                          tol)
+                worst[("flash", dt)] = max(worst.get(("flash", dt), 0), e)
+            for G in GROUPS:
+                KH = 2
+                q = rand(torch, g, dt, 3, G * KH, D)
+                k, v = (rand(torch, g, dt, 3, KH, 300, D),
+                        rand(torch, g, dt, 3, KH, 300, D))
+                lens = torch.tensor([1, 150, 300], dtype=torch.int32,
+                                    device="cuda")
+                e = close(torch, f"decode {dt} G{G} D{D}",
+                          dec(q, k, v, lens, n_splits=4),
+                          dec_plain(q, k, v, lens, n_splits=4), tol)
+                worst[("decode", dt)] = max(worst.get(("decode", dt), 0), e)
+                # B * G folded rows: <= 64 (4 rows a thread), <= 128 (8),
+                # > 128 (two row tiles)
+                for B in (2, -(-65 // G), -(-129 // G)):
+                    q = rand(torch, g, dt, B, G * KH, D)
+                    kp, vp = (rand(torch, g, dt, KH, 200, D),
+                              rand(torch, g, dt, KH, 200, D))
+                    ks, vs = (rand(torch, g, dt, B, KH, 40, D),
+                              rand(torch, g, dt, B, KH, 40, D))
+                    sl = ragged(torch, g, B, 40)
+                    e = close(torch, f"prefix {dt} G{G} D{D} B{B}",
+                              pre(q, kp, vp, ks, vs, sl, block_k=64),
+                              pre_plain(q, kp, vp, ks, vs, sl), tol)
+                    worst[("prefix", dt)] = max(worst.get(("prefix", dt), 0),
+                                                e)
+    print("library: every instantiation agrees with its plain version "
+          "(flash dtype x D x 2 masks, decode dtype x G x D, prefix dtype x "
+          "G x D x 3 row counts); max err " + ", ".join(
+              f"{k} {str(d)[6:]} {e:.3e}" for (k, d), e in worst.items()))
+    f32 = torch.float32
+    for j, (B, H, KH, Sq, Skv, D, causal, win) in enumerate(bench.FLASH_CASES):
+        q, k, v = (rand(torch, g, f32, B, H, Sq, D),
+                   rand(torch, g, f32, B, KH, Skv, D),
+                   rand(torch, g, f32, B, KH, Skv, D))
+        e = close(torch, f"FLASH_CASES[{j}]",
+                  fla(q, k, v, causal=causal, window=win),
+                  fla_plain(q, k, v, causal=causal, window=win), F32)
+        print(f"library: FLASH_CASES[{j}] {bench.FLASH_CASES[j]} "
+              f"max_err={e:.3e}")
+    for j, (B, H, KH, S, D, ns) in enumerate(bench.DEC_CASES):
+        q, k, v = (rand(torch, g, f32, B, H, D),
+                   rand(torch, g, f32, B, KH, S, D),
+                   rand(torch, g, f32, B, KH, S, D))
+        lens = ragged(torch, g, B, S)
+        e = close(torch, f"DEC_CASES[{j}]", dec(q, k, v, lens, n_splits=ns),
+                  dec_plain(q, k, v, lens, n_splits=ns), F32)
+        print(f"library: DEC_CASES[{j}] {bench.DEC_CASES[j]} max_err={e:.3e}")
+    for j, (B, H, KH, Sp, Ss, D) in enumerate(bench.PRE_CASES):
+        q = rand(torch, g, f32, B, H, D)
+        kp, vp = (rand(torch, g, f32, KH, Sp, D),
+                  rand(torch, g, f32, KH, Sp, D))
+        ks, vs = (rand(torch, g, f32, B, KH, Ss, D),
+                  rand(torch, g, f32, B, KH, Ss, D))
+        lens = ragged(torch, g, B, Ss)
+        e = close(torch, f"PRE_CASES[{j}]", pre(q, kp, vp, ks, vs, lens),
+                  pre_plain(q, kp, vp, ks, vs, lens), F32)
+        for got, exp in zip(part(q, kp, vp), part_plain(q, kp, vp)):
+            close(torch, f"PRE_CASES[{j}] partial", got, exp,
+                  dict(atol=1e-3, rtol=1e-4))
+        print(f"library: PRE_CASES[{j}] {bench.PRE_CASES[j]} max_err={e:.3e} "
+              "(and prefix_partial's raw acc, m, l)")
+
+    # 3. full widths, bf16: kernel, plain version and a PyTorch yardstick
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    bf = torch.bfloat16
+    out = {}
+
+    def measure(kind, width, kernel, plain, library, bytes_, flops,
+                plain_n=10, library_n=30):
+        err = close(torch, f"{kind} {width}", kernel(), plain(), BF16)
+        # the yardstick may round P to bf16 before P V: a looser bound,
+        # still tight enough to catch a wrong mask
+        lib_err = close(torch, f"{kind} {width} yardstick", library(),
+                        plain(), dict(atol=5e-2, rtol=0.0))
+        b_ms, b_by = bound(bytes_, flops)
+        row = dict(width=width, max_abs_err=err, library_err=lib_err,
+                   ms=time_ms(torch, kernel, flush),
+                   plain_ms=time_ms(torch, plain, flush, n=plain_n),
+                   library_ms=time_ms(torch, library, flush, n=library_n),
+                   bound_ms=b_ms, bound_by=b_by, bytes=bytes_, flops=flops)
+        row["bound_frac"] = b_ms / row["ms"]
+        print(f"library: {kind} " + json.dumps(row))
+        out.setdefault(kind, []).append(row)
+
+    for width, H, KH, D, S, win in (("smollm-360m", 15, 5, 64, 2048, 0),
+                                    ("mistral-7b", 32, 8, 128, 8192, 4096)):
+        q, k, v = (rand(torch, g, bf, 1, H, S, D),
+                   rand(torch, g, bf, 1, KH, S, D),
+                   rand(torch, g, bf, 1, KH, S, D))
+        if win:
+            pos = torch.arange(S, device="cuda")
+            mask = (pos[None, :] <= pos[:, None]) \
+                & (pos[None, :] > pos[:, None] - win)
+
+            def library(q=q, k=k, v=v, mask=mask):
+                return sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+        else:
+            def library(q=q, k=k, v=v):
+                return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        measure("flash", width,
+                lambda q=q, k=k, v=v, w=win: fla(q, k, v, window=w),
+                lambda q=q, k=k, v=v, w=win: fla_plain(q, k, v, window=w),
+                library, 2 * (2 * q.numel() + 2 * k.numel()),
+                4 * D * H * visible_pairs(S, S, True, win),
+                plain_n=3 if win else 10, library_n=10 if win else 30)
+
+    for width, H, KH, D, S in (("smollm-360m", 15, 5, 64, 2048),
+                               ("mistral-7b", 32, 8, 128, 8192)):
+        B = 8
+        q = rand(torch, g, bf, B, H, D)
+        k, v = rand(torch, g, bf, B, KH, S, D), rand(torch, g, bf, B, KH, S, D)
+        lens = ragged(torch, g, B, S)
+        mask = (torch.arange(S, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]
+        ntok = int(lens.sum())
+        measure("decode", width,
+                lambda q=q, k=k, v=v, n=lens: dec(q, k, v, n, n_splits=8),
+                lambda q=q, k=k, v=v, n=lens: dec_plain(q, k, v, n,
+                                                        n_splits=8),
+                lambda q=q, k=k, v=v, m=mask: sdpa(
+                    q[:, :, None], k, v, attn_mask=m,
+                    enable_gqa=True)[:, :, 0],
+                ntok * KH * D * 2 * 2 + 2 * q.numel() * 2 + B * 4,
+                4 * ntok * H * D)
+
+    for width, H, KH, D in (("smollm-360m", 15, 5, 64),
+                            ("mistral-7b", 32, 8, 128)):
+        B, Sp, Ss = 32, 4096, 256
+        q = rand(torch, g, bf, B, H, D)
+        kp, vp = rand(torch, g, bf, KH, Sp, D), rand(torch, g, bf, KH, Sp, D)
+        ks, vs = (rand(torch, g, bf, B, KH, Ss, D),
+                  rand(torch, g, bf, B, KH, Ss, D))
+        lens = ragged(torch, g, B, Ss)
+        # the yardstick's inputs: each request's [prefix ++ suffix], built
+        # here and not timed; SDPA then reads the prefix B times
+        kc = torch.cat([kp[None].expand(B, -1, -1, -1), ks], dim=2)
+        vc = torch.cat([vp[None].expand(B, -1, -1, -1), vs], dim=2)
+        mask = (torch.arange(Sp + Ss, device="cuda")[None, :]
+                < (Sp + lens)[:, None])[:, None, None, :]
+        ntok = int(lens.sum())
+        measure("prefix", width,
+                lambda q=q, a=(kp, vp, ks, vs, lens): pre(q, *a),
+                lambda q=q, a=(kp, vp, ks, vs, lens): pre_plain(q, *a),
+                lambda q=q, kc=kc, vc=vc, m=mask: sdpa(
+                    q[:, :, None], kc, vc, attn_mask=m,
+                    enable_gqa=True)[:, :, 0],
+                2 * KH * Sp * D * 2 + ntok * KH * D * 2 * 2
+                + 2 * q.numel() * 2 + B * 4,
+                4 * H * D * (B * Sp + ntok))
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dt_name, G, D in (("bf16", 3, 64), ("bf16", 4, 128)):
+        blocks, regs, smem = DA.occupancy(bf, G, D)
+        print(f"library: occupancy decode partial {dt_name} G{G} D{D}: "
+              f"{blocks} resident blocks/SM x 128 threads, {regs} "
+              f"registers/thread, {smem} B shared; grid n_splits*KH*B = "
+              f"{8 * (5 if G == 3 else 8) * 8} blocks on {sms} SMs")
+        rt = 8                                  # B 32 x G 3 or 4 > 64 rows
+        blocks, regs, smem = PF.occupancy(bf, D, rt)
+        n_split, chunk = PF.split_layout(4096, 5 if G == 3 else 8, 128, sms)
+        print(f"library: occupancy prefix {dt_name} D{D} rows/thread {rt}: "
+              f"{blocks} resident blocks/SM x 256 threads, {regs} "
+              f"registers/thread, {smem} B shared; grid {n_split} splits of "
+              f"{chunk} keys x {5 if G == 3 else 8} KV heads")
+        blocks, regs, smem = FA.occupancy(bf, D)
+        print(f"library: occupancy flash {dt_name} D{D} (tensor cores): "
+              f"{blocks} resident blocks/SM x 128 threads, {regs} "
+              f"registers/thread, {smem} B shared")
+    return launches, out
 
 
 # ---------------------------------------------------------------------------
@@ -364,6 +643,12 @@ def main() -> None:
     from repro_torch.core.request import Request
     from repro_torch.kernels import build
     from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import bench
+    # the kernel modules (the package's names of the same spelling are the
+    # functions)
+    DA, PF, FA = (importlib.import_module(f"repro_torch.kernels.{m}")
+                  for m in ("decode_attention", "prefix_attention",
+                            "flash_attention"))
     from repro_torch.launch import serve
     from repro_torch.serving.engine import Engine, EngineConfig
 
@@ -380,6 +665,9 @@ def main() -> None:
           f"(nvcc {', '.join(f'{k} {v:.1f}s' for k, v in build.build_seconds.items())})")
 
     rows = kernel_phase(torch, PA)
+    t0 = time.perf_counter()
+    lib_launches, lib_rows = library_phase(torch, bench, DA, PF, FA)
+    print(f"library: phase took {time.perf_counter() - t0:.1f}s")
     launches = serve_phase(torch, PA, serve)
     reference_phase(torch, configs, bridge, Engine, EngineConfig, Request)
     profile_phase(torch, serve)
@@ -393,6 +681,22 @@ def main() -> None:
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"]}]
+    # the new kernels at full smollm-360m width (the served model's heads)
+    for kind, name, src, tpu in (
+            ("decode", "decode_attention", "decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:56"),
+            ("prefix", "prefix_partial", "prefix_attention.cu",
+             "src/repro/kernels/prefix_attention.py:74"),
+            ("flash", "flash_attention", "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:90")):
+        r = lib_rows[kind][0]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": tpu, "launches": lib_launches[kind],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``build/kernels/`` at the root of the checkout and loaded with
-``ctypes``. The library's file name carries a hash of the source and the
-flags, so an edited source is rebuilt and a stale library is never
-loaded. Nothing here runs at import time: the CPU tests import every
-module, and ``nvcc`` is needed only once a CUDA tensor reaches a kernel.
+``ctypes``. The library's file name carries a hash of the source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded. Nothing here runs
+at import time: the CPU tests import every module, and ``nvcc`` is needed
+only once a CUDA tensor reaches a kernel.
 """
 
 from __future__ import annotations
@@ -53,10 +54,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives for this source."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where the library of ``csrc/<name>.cu`` lives for this source. The
+    digest covers the ``.cu``, every shared ``csrc/*.cuh`` header (a
+    ``.cu`` may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:

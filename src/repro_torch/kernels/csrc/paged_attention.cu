@@ -27,35 +27,17 @@
 //     threads on neighbouring addresses.
 // Not done yet (later work): split-KV across blocks to fill 132 SMs at
 // small batch, and cp.async/TMA staging of pages into shared memory.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
+using repro::store;
+using repro::to_f32;
+using repro::warp_max;
+using repro::warp_sum;
+
 constexpr int kThreads = 128;  // one token of the tile per thread
 constexpr int kTile = kThreads;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // grid (KH, B), block kThreads. Template: element type T, group G, head D.
 template <typename T, int G, int D>
@@ -216,35 +198,6 @@ const void* kernel_ptr() {
   return reinterpret_cast<const void*>(&paged_decode_kernel<T, G, D>);
 }
 
-// dispatch over the instantiated (G, D); false when not covered
-template <typename T, typename F>
-bool dispatch(int G, int D, const F& f) {
-#define REPRO_D(GG)                              \
-  switch (D) {                                   \
-    case 16: f.template operator()<T, GG, 16>(); return true;  \
-    case 32: f.template operator()<T, GG, 32>(); return true;  \
-    case 64: f.template operator()<T, GG, 64>(); return true;  \
-    case 128: f.template operator()<T, GG, 128>(); return true; \
-    default: return false;                       \
-  }
-  switch (G) {
-    case 1: REPRO_D(1)
-    case 2: REPRO_D(2)
-    case 3: REPRO_D(3)
-    case 4: REPRO_D(4)
-    case 8: REPRO_D(8)
-    default: return false;
-  }
-#undef REPRO_D
-}
-
-template <typename F>
-bool dispatch_dtype(int dtype, int G, int D, const F& f) {
-  if (dtype == 0) return dispatch<float>(G, D, f);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(G, D, f);
-  return false;
-}
-
 // Functors for dispatch (a local class may not have member templates).
 struct LaunchFn {
   const void *q, *k, *v, *pt, *lens;
@@ -293,7 +246,8 @@ int repro_paged_decode_attention(const void* q, const void* k_pages,
   cudaError_t err = cudaSuccess;
   const LaunchFn f{q, k_pages, v_pages, page_table, lens, out, B, H, KH, P,
                    PS, n_pages, static_cast<cudaStream_t>(stream), &err};
-  if (!dispatch_dtype(dtype, H / KH, D, f)) return (int)cudaErrorInvalidValue;
+  if (!repro::dispatch_dtype_gd(dtype, H / KH, D, f))
+    return (int)cudaErrorInvalidValue;
   return (int)err;
 }
 
@@ -303,12 +257,9 @@ int repro_paged_decode_occupancy(int dtype, int G, int D, int* blocks_per_sm,
                                  int* regs, int* smem_bytes) {
   cudaError_t err = cudaSuccess;
   const QueryFn f{blocks_per_sm, regs, smem_bytes, &err};
-  if (!dispatch_dtype(dtype, G, D, f)) return (int)cudaErrorInvalidValue;
+  if (!repro::dispatch_dtype_gd(dtype, G, D, f))
+    return (int)cudaErrorInvalidValue;
   return (int)err;
-}
-
-const char* repro_cuda_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
 }
 
 }  // extern "C"

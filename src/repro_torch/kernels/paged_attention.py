@@ -24,10 +24,9 @@ from typing import Tuple
 import torch
 
 from . import build
+from .checks import DTYPE_CODE as _DTYPE_CODE
+from .checks import GROUPS, HEAD_DIMS  # the built (G, D)
 
-GROUPS = (1, 2, 3, 4, 8)            # G = H // KH the kernel is built for
-HEAD_DIMS = (16, 32, 64, 128)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = "paged_attention"
 
 

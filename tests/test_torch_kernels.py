@@ -146,3 +146,21 @@ def test_build_rebuilds_when_the_source_changes(tmp_path, monkeypatch):
     src.write_text((build.CSRC / "paged_attention.cu").read_text() + "\n")
     monkeypatch.setattr(build, "CSRC", tmp_path)
     assert build.library_path("paged_attention") != before
+
+
+def test_build_rebuilds_when_a_shared_header_changes(tmp_path, monkeypatch):
+    """A .cu may include any csrc/*.cuh: editing a header renames every
+    library, so a stale one is never loaded."""
+    for f in list(build.CSRC.glob("*.cu")) + list(build.CSRC.glob("*.cuh")):
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    assert (tmp_path / "common.cuh").exists()
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {n: build.library_path(n) for n in build.sources()}
+    assert set(before) >= {"paged_attention", "decode_attention",
+                           "prefix_attention", "flash_attention"}
+    header = tmp_path / "common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: build.library_path(n) for n in build.sources()}
+    assert all(after[n] != before[n] for n in before)
+    (tmp_path / "unrelated.cuh").write_text("// new header\n")
+    assert all(build.library_path(n) != after[n] for n in after)
