@@ -6,10 +6,12 @@ flash_attention`` (grid (B, H, nq, nk), online softmax over KV blocks,
 causal and sliding-window block skipping). The CUDA source is
 ``csrc/flash_attention.cu``; its header says what bounds the kernel on an
 H100 (operations: 4 * D flops per visible (query, key) pair) and what its
-design does about that (64 x 64 tiles through shared memory, bf16 on the
-tensor cores with mma.sync and f32 on the CUDA cores, only the key tiles
-that hold a visible key, longest query tiles first, strided reads of
-either layout).
+design does about that (bf16: one block of two warpgroups per query tile
+and group of ``head_group(G)`` query heads of a KV head, their (head,
+position) rows folded into 128, so each 64-key K/V tile is loaded once for
+the group, by TMA into a ring paced by mbarriers, on the tensor cores with
+wgmma; f32 on the CUDA cores; only the key tiles that hold a visible key,
+longest query tiles first, strided reads of either layout).
 
 ``flash_attention`` takes the plain version only for tensors that lie on
 the CPU. For CUDA tensors it launches the kernel or raises; it never falls
@@ -69,17 +71,28 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return out
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load(_LIB)
+def head_group(G: int) -> int:
+    """Query heads that one bf16 block holds, all sharing its K/V tiles:
+    the largest of 4, 3, 2, 1 that divides G (G itself for G <= 4, a
+    group of 4 for G 8, so two blocks per KV head)."""
+    return next(d for d in (4, 3, 2, 1) if G % d == 0)
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Give the library's entry points their C types (once)."""
     fn = lib.repro_flash_attention
-    if fn.argtypes is None:             # first load: declare the C types
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 \
             + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         occ = lib.repro_flash_occupancy
-        occ.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
+        occ.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 4
         occ.restype = ctypes.c_int
     return lib
+
+
+def _lib() -> ctypes.CDLL:
+    return _declare(build.load(_LIB))
 
 
 def _check_args(q, k, v, window, kv_len) -> int:
@@ -137,7 +150,8 @@ def _run_into(out, q, k, v, causal: bool, window: int, kv_len) -> None:
     err = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, H, KH, D, Sq, Skv, kv_len, int(bool(causal)), int(window),
-        *q.stride()[:3], *k.stride()[:3], *out.stride()[:3],
+        head_group(H // KH), *q.stride()[:3], *k.stride()[:3],
+        *out.stride()[:3],
         checks.DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "flash_attention launch")
@@ -152,7 +166,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     ``causal`` and ``window`` mask as the Pallas kernel does, with
     positions from 0 on both sides. ``block_q`` and ``block_k`` are the
     Pallas kernel's tile sizes, kept for its signature: the CUDA kernel's
-    tiles are fixed (64 queries x 64 keys) and no result depends on them."""
+    tiles are fixed (64 keys; 64 queries for f32, 128 / head_group(G)
+    positions of each head for bf16) and no result depends on them."""
     if block_q < 1 or block_k < 1:
         raise ValueError("flash_attention: block_q and block_k must be >= 1")
     B, H, Sq, D = q.shape
@@ -164,13 +179,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 flash_attention.launches = 0
 
 
-def occupancy(dtype: torch.dtype, D: int) -> Tuple[int, int, int]:
-    """(resident blocks per SM, registers per thread, shared bytes) of
-    the kernel instantiated for (dtype, D) on the current card."""
+def occupancy(dtype: torch.dtype, D: int) -> Tuple[int, int, int, int]:
+    """(resident blocks per SM, registers per thread, shared bytes,
+    threads per block) of the kernel instantiated for (dtype, D) on the
+    current card."""
     lib = _lib()
-    blocks, regs, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    blocks, regs, smem, threads = (ctypes.c_int(), ctypes.c_int(),
+                                   ctypes.c_int(), ctypes.c_int())
     err = lib.repro_flash_occupancy(
         checks.DTYPE_CODE[dtype], D, ctypes.byref(blocks),
-        ctypes.byref(regs), ctypes.byref(smem))
+        ctypes.byref(regs), ctypes.byref(smem), ctypes.byref(threads))
     build.check(lib, err, "flash_attention occupancy")
-    return blocks.value, regs.value, smem.value
+    return blocks.value, regs.value, smem.value, threads.value

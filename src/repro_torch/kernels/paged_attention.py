@@ -6,19 +6,27 @@ paged_decode_attention`` (grid (B, KH, P) of per-page softmax partials
 merged by ``lse_merge``). The CUDA source is ``csrc/paged_attention.cu``;
 its header says what bounds the kernel on an H100 (memory: the KV bytes
 the lanes need, sum_b len_b * KH * D * 2 * itemsize) and what its design
-does about that (reads the pool in place, one block per (KV head, lane)
-holding the G query rows, visits only the lane's first ceil(len/PS)
-pages, online softmax in f32, writes the output directly).
+does about that (split-KV grid (n_splits, KH, B) of whole-page splits,
+pages staged through shared memory by a cp.async ring, the G query rows
+sharing every K/V row read, per-warp softmax state merged once a split,
+and ``lse_merge`` over the splits' f32 partials).
+
+``split_plan`` chooses the splits on the host from host-known values
+only (B, KH, the table width, the SM count), never from ``lens``, which
+live on the card: reading them would cost a host sync on every layer.
 
 ``paged_decode_attention`` takes the plain version only for tensors that
 lie on the CPU. For CUDA tensors it launches the kernel or raises; it
-never falls back. ``paged_decode_attention.launches`` counts kernel
-launches (never plain-version calls).
+never falls back. ``paged_decode_attention.launches`` counts calls that
+went through the kernel: one launch when the plan has one split, two
+(the split kernel and the merge) otherwise. Plain-version calls never
+count.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -28,6 +36,29 @@ from .checks import DTYPE_CODE as _DTYPE_CODE
 from .checks import GROUPS, HEAD_DIMS  # the built (G, D)
 
 _LIB = "paged_attention"
+BLOCKS_PER_SM = 3        # the split plan's aim: about 3 blocks on each SM
+
+
+def tile_tokens(dtype: torch.dtype, D: int) -> int:
+    """Tokens in one pipeline tile of the kernel for (dtype, D): 4 warps
+    x 4 steps x the tokens a warp takes at once (32 lanes over D / (16 B)
+    lanes a row). A tile's K and V are 16 KB whatever the dtype and D."""
+    return 16 * 32 * (16 // dtype.itemsize) // D
+
+
+def split_plan(B: int, KH: int, P: int, PS: int, tile: int,
+               sms: int) -> Tuple[int, int]:
+    """(n_splits, pages per split) for a batch of B lanes of P table
+    entries of PS tokens: every split a whole number of pages covering at
+    least one tile of ``tile`` tokens (or all P pages when the row is
+    shorter), and n_splits * B * KH about BLOCKS_PER_SM blocks on each of
+    ``sms`` SMs. Host-known values only: no lane length is read."""
+    min_pages = max(1, -(-tile // PS))
+    most = max(1, P // min_pages)
+    want = -(-sms * BLOCKS_PER_SM // max(1, B * KH))
+    n = max(1, min(want, most))
+    pps = -(-P // n)
+    return -(-P // pps), pps
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, page_table, lens):
@@ -59,11 +90,11 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(_LIB)
     fn = lib.repro_paged_decode_attention
     if fn.argtypes is None:             # first load: declare the C types
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         occ = lib.repro_paged_decode_occupancy
-        occ.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
+        occ.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 4
         occ.restype = ctypes.c_int
     return lib
 
@@ -111,6 +142,22 @@ def _check_cuda(q, k_pages, v_pages, page_table, lens) -> None:
                              "aligned")
 
 
+@functools.lru_cache(maxsize=None)
+def _plan(B: int, KH: int, P: int, PS: int, dtype: torch.dtype, D: int,
+          device: torch.device) -> Tuple[int, int]:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return split_plan(B, KH, P, PS, tile_tokens(dtype, D), sms)
+
+
+def plan_for(q, k_pages, page_table) -> Tuple[int, int]:
+    """The (n_splits, pages per split) that ``paged_decode_attention``
+    launches for these CUDA tensors (cached per shape, dtype and card:
+    every layer of an engine step asks for the same plan)."""
+    _, PS, KH, D = k_pages.shape
+    return _plan(q.shape[0], KH, page_table.shape[1], PS, q.dtype, D,
+                 q.device)
+
+
 def paged_decode_attention(q, k_pages, v_pages, page_table, lens):
     """Decode attention over the shared page pool; see the module doc.
     Same arguments and result as ``paged_decode_attention_plain``."""
@@ -127,11 +174,23 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lens):
     out = torch.empty_like(q)
     if B == 0:
         return out
+    n_splits, pps = plan_for(q, k_pages, page_table)
+    G = H // KH
+    if n_splits > 1:
+        # one scratch buffer: acc [B, KH, n_splits, G, D], then m and l
+        # [B, KH, n_splits, G]
+        rows = B * KH * n_splits * G
+        scratch = torch.empty(rows * (D + 2), dtype=torch.float32,
+                              device=q.device)
+        base = scratch.data_ptr()
+        ptrs = (base, base + rows * D * 4, base + rows * (D + 1) * 4)
+    else:
+        ptrs = (None, None, None)
     lib = _lib()
     err = lib.repro_paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        B, H, KH, D, P, PS, n_pages, _DTYPE_CODE[q.dtype],
+        page_table.data_ptr(), lens.data_ptr(), out.data_ptr(), *ptrs,
+        B, H, KH, D, P, PS, n_pages, n_splits, pps, _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "paged_decode_attention launch")
     paged_decode_attention.launches += 1
@@ -141,14 +200,16 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lens):
 paged_decode_attention.launches = 0
 
 
-def occupancy(dtype: torch.dtype, G: int, D: int) -> Tuple[int, int, int]:
-    """(resident blocks per SM, registers per thread, static shared
-    bytes) of the kernel instantiated for (dtype, G, D) on the current
-    card."""
+def occupancy(dtype: torch.dtype, G: int, D: int,
+              pps: int = 1) -> Tuple[int, int, int, int]:
+    """(resident blocks per SM, registers per thread, shared bytes, tile
+    tokens) of the kernel instantiated for (dtype, G, D) with ``pps``
+    pages a split, on the current card."""
     lib = _lib()
-    blocks, regs, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    blocks, regs, smem, tile = (ctypes.c_int(), ctypes.c_int(),
+                                ctypes.c_int(), ctypes.c_int())
     err = lib.repro_paged_decode_occupancy(
-        _DTYPE_CODE[dtype], G, D, ctypes.byref(blocks), ctypes.byref(regs),
-        ctypes.byref(smem))
+        _DTYPE_CODE[dtype], G, D, pps, ctypes.byref(blocks),
+        ctypes.byref(regs), ctypes.byref(smem), ctypes.byref(tile))
     build.check(lib, err, "paged_decode_attention occupancy")
-    return blocks.value, regs.value, smem.value
+    return blocks.value, regs.value, smem.value, tile.value

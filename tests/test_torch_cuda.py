@@ -8,9 +8,13 @@ tests/conftest.py, which imports JAX, is skipped):
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
         tests/test_torch_cuda.py
 
-Tolerances: float32 atol 3e-5 / rtol 1e-4 (summation order only);
-bfloat16 2e-2 absolute, about one bf16 ulp at |x| < 4, since kernel and
-plain version round the same f32 result once to bf16.
+Tolerances: float32 atol 3e-5 / rtol 1e-4 (summation order only).
+bfloat16: kernel and plain version round nearly the same f32 result once
+to bf16, so an element may differ by one bf16 ulp (at most 2^-7 |x|) plus
+their f32 difference (flash rounds P to bf16 before P V, the plain version
+does not), which is held to 2^-6 of the rms of the element's output row
+(its last dimension). A tile of keys lost, stale or read twice moves a row
+by a large share of its rms and fails.
 """
 
 import numpy as np
@@ -22,6 +26,7 @@ from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels.bench import DEC_CASES, FLASH_CASES, PRE_CASES
 from repro_torch.kernels.decode_attention import (
     decode_attention, decode_attention_plain)
+from repro_torch.kernels.checks import GROUPS, HEAD_DIMS
 from repro_torch.kernels.flash_attention import (
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.prefix_attention import (
@@ -29,6 +34,28 @@ from repro_torch.kernels.prefix_attention import (
     prefix_partial_plain)
 
 torch.set_num_threads(1)
+
+F32 = dict(atol=3e-5, rtol=1e-4)
+BF16_RTOL, BF16_ROW_RTOL = 2 ** -7, 2 ** -6
+
+
+def _assert_close(got, exp, dtype):
+    """got within the tolerance of exp for dtype (module doc)."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.float(), exp.float(), **F32)
+        return
+    g, e = got.float(), exp.float()
+    assert torch.isfinite(g).all()
+    err = (g - e).abs()
+    bound = BF16_RTOL * e.abs() \
+        + BF16_ROW_RTOL * e.pow(2).mean(-1, keepdim=True).sqrt()
+    bad = err > bound
+    assert not bad.any(), (
+        f"{int(bad.sum())} of {err.numel()} elements over the bound, first "
+        f"at {tuple(bad.nonzero()[0].tolist())}; max |err| "
+        f"{err.max().item():.3e}, "
+        f"{torch.where(err == 0, 0.0, err / bound).max().item():.3g}x "
+        "the bound")
 
 # (B, H, KH, page, P, n_pages, D): the JAX package's paged cases, then
 # the decode half of full-width smollm-360m (G 3, D 64, page 16)
@@ -65,9 +92,83 @@ def test_paged_decode_kernel_matches_plain(card, case, dtype):
     torch.cuda.synchronize()
     assert PA.paged_decode_attention.launches == n0 + 1
     exp = PA.paged_decode_attention_plain(*inp)
-    tol = dict(atol=3e-5, rtol=1e-4) if dtype == torch.float32 \
-        else dict(atol=2e-2, rtol=0.0)
-    torch.testing.assert_close(got.float(), exp.float(), **tol)
+    _assert_close(got, exp, dtype)
+
+
+def _paged_split_edges(dtype, G, D, seed, KH=2, PS=16, P=32):
+    """Seven lanes whose lens sit at the edges of the plan's pages and
+    splits (1, PS - 1, PS, chunk - 1, chunk, chunk + 1, P * PS), lanes 5
+    and 6 aliasing lane 4's first pages as prefix reuse makes them."""
+    rng = np.random.default_rng(seed)
+    n_pages = 8 * P
+    q = _card(rng, dtype, 7, G * KH, D)
+    k, v = (_card(rng, dtype, n_pages, PS, KH, D),
+            _card(rng, dtype, n_pages, PS, KH, D))
+    pt = np.stack([rng.choice(n_pages, P, replace=False) for _ in range(7)])
+    pt[5:, :P // 2] = pt[4, :P // 2]
+    pt = torch.from_numpy(pt.astype(np.int32)).cuda()
+    n_splits, pps = PA.plan_for(q, k, pt)
+    chunk = pps * PS
+    lens = [1, PS - 1, PS, chunk - 1, chunk, min(chunk + 1, P * PS), P * PS]
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return (q, k, v, pt, lens), n_splits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("G", GROUPS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_split_edges(card, dtype, G, D):
+    inp, n_splits = _paged_split_edges(dtype, G, D, seed=G * 1000 + D)
+    got = PA.paged_decode_attention(*inp)
+    exp = PA.paged_decode_attention_plain(*inp)
+    _assert_close(got, exp, dtype)
+    assert PA.occupancy(dtype, G, D)[3] == PA.tile_tokens(dtype, D)
+    if dtype == torch.bfloat16 and D == 64:
+        assert n_splits > 1, "the edge case must cut rows into splits"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_one_full_lane(card, dtype):
+    """B 1 at full length: the plan spreads the row over many splits."""
+    rng = np.random.default_rng(5)
+    q = _card(rng, dtype, 1, 15, 64)
+    k, v = _card(rng, dtype, 200, 16, 5, 64), _card(rng, dtype, 200, 16, 5, 64)
+    pt = torch.from_numpy(rng.choice(200, (1, 128), replace=False)
+                          .astype(np.int32)).cuda()
+    lens = torch.tensor([2048], dtype=torch.int32, device="cuda")
+    assert PA.plan_for(q, k, pt)[0] > 1
+    _assert_close(PA.paged_decode_attention(q, k, v, pt, lens),
+                  PA.paged_decode_attention_plain(q, k, v, pt, lens), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [50, 25])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("G", GROUPS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_splits_wrap_the_ring(card, dtype, G, D, B):
+    """Splits of more tiles than the cp.async ring has stages: B * KH 400
+    lanes plan one split a row, 200 two; a row holds 9 or more tiles, and
+    lens run from 0 to the full row."""
+    rng = np.random.default_rng(G * 1000 + D + B)
+    KH, PS = 8, 16
+    tile = PA.tile_tokens(dtype, D)
+    P = 2 * -(-9 * tile // (2 * PS))
+    n_pages = B * P + 1
+    q = _card(rng, dtype, B, G * KH, D)
+    k = _card(rng, dtype, n_pages, PS, KH, D)
+    v = _card(rng, dtype, n_pages, PS, KH, D)
+    pt = torch.from_numpy(rng.permutation(n_pages)[:B * P].reshape(B, P)
+                          .astype(np.int32)).cuda()
+    lens = rng.integers(0, P * PS + 1, B)
+    lens[:4] = [P * PS, 0, P * PS // 2 + 1, 3 * tile + 1]
+    lens = torch.from_numpy(lens.astype(np.int32)).cuda()
+    n_splits, pps = PA.plan_for(q, k, pt)
+    assert pps * PS > 3 * tile, "a split must hold more tiles than stages"
+    _assert_close(PA.paged_decode_attention(q, k, v, pt, lens),
+                  PA.paged_decode_attention_plain(q, k, v, pt, lens), dtype)
 
 
 @pytest.mark.cuda
@@ -81,14 +182,6 @@ def test_paged_decode_kernel_rejects_cpu_mix(card):
 # ---------------------------------------------------------------------------
 # the attention-kernel library: decode (split-K), prefix (Hydragen), flash
 # ---------------------------------------------------------------------------
-
-F32 = dict(atol=3e-5, rtol=1e-4)
-BF16 = dict(atol=2e-2, rtol=0.0)
-
-
-def _tol(dtype):
-    return F32 if dtype == torch.float32 else BF16
-
 
 def _card(rng, dtype, *shape):
     return torch.from_numpy(
@@ -120,7 +213,7 @@ def test_decode_kernel_matches_plain(card, case, dtype):
     torch.cuda.synchronize()
     assert decode_attention.launches == n0 + 1
     exp = decode_attention_plain(q, k, v, lens, n_splits=ns)
-    torch.testing.assert_close(got.float(), exp.float(), **_tol(dtype))
+    _assert_close(got, exp, dtype)
 
 
 # (B, H, KH, Sp, Ss, D): the JAX package's cases, then full-width
@@ -144,7 +237,7 @@ def test_prefix_kernel_matches_plain(card, case, dtype):
     torch.cuda.synchronize()
     assert prefix_partial.launches == n0 + 1
     exp = prefix_attention_plain(q, kp, vp, ks, vs, lens)
-    torch.testing.assert_close(got.float(), exp.float(), **_tol(dtype))
+    _assert_close(got, exp, dtype)
     # the raw partial of the prefix alone, f32 in both versions: acc and l
     # are unnormalised sums over up to Sp keys, so the summation-order
     # tolerance is relative, with an absolute floor for acc entries near 0
@@ -174,7 +267,67 @@ def test_flash_kernel_matches_plain(card, case, dtype):
     torch.cuda.synchronize()
     assert flash_attention.launches == n0 + 1
     exp = flash_attention_plain(q, k, v, causal=causal, window=win)
-    torch.testing.assert_close(got.float(), exp.float(), **_tol(dtype))
+    _assert_close(got, exp, dtype)
+
+
+# masks of the redesigned bf16 path: (causal, window, kv_len) at Sq 100
+# (not a multiple of any query tile), Skv 130
+FLASH_MASKS = [(True, 0, None), (False, 0, None), (True, 40, None),
+               (False, 0, 77), (True, 24, 111)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", FLASH_MASKS)
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("G", [1, 3, 4, 8])
+def test_flash_bf16_head_groups_and_masks(card, G, D, mask):
+    causal, win, kv_len = mask
+    rng = np.random.default_rng(G * 100 + D)
+    KH = 2
+    bf = torch.bfloat16
+    q = _card(rng, bf, 2, G * KH, 100, D)
+    k, v = _card(rng, bf, 2, KH, 130, D), _card(rng, bf, 2, KH, 130, D)
+    got = flash_attention(q, k, v, causal=causal, window=win, kv_len=kv_len)
+    exp = flash_attention_plain(q, k, v, causal=causal, window=win,
+                                kv_len=kv_len)
+    _assert_close(got, exp, torch.bfloat16)
+
+
+# masks at Sq = Skv = 461: up to 8 key tiles of 64 a row (6 under the
+# window or kv_len), more than the ring's 4 stages
+FLASH_RING_MASKS = [(True, 0, None), (False, 0, None), (True, 330, None),
+                    (False, 0, 333), (True, 300, 400)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", FLASH_RING_MASKS)
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 3, 4, 8])
+def test_flash_bf16_key_tiles_wrap_the_ring(card, G, D, mask):
+    causal, win, kv_len = mask
+    rng = np.random.default_rng(G * 100 + D + 7)
+    KH = 2
+    bf = torch.bfloat16
+    q = _card(rng, bf, 2, G * KH, 461, D)
+    k, v = _card(rng, bf, 2, KH, 461, D), _card(rng, bf, 2, KH, 461, D)
+    got = flash_attention(q, k, v, causal=causal, window=win, kv_len=kv_len)
+    exp = flash_attention_plain(q, k, v, causal=causal, window=win,
+                                kv_len=kv_len)
+    _assert_close(got, exp, bf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 3, 4, 8])
+def test_flash_bf16_model_layout_views(card, G):
+    """The bf16 path reads and writes transposed views of [B, S, H, D]."""
+    rng = np.random.default_rng(G)
+    bf = torch.bfloat16
+    q = _card(rng, bf, 2, 150, 2 * G, 64)
+    k, v = _card(rng, bf, 2, 150, 2, 64), _card(rng, bf, 2, 150, 2, 64)
+    got = ops.flash_attention(q, k, v, window=50)
+    exp = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), window=50).transpose(1, 2)
+    _assert_close(got, exp, torch.bfloat16)
 
 
 @pytest.mark.cuda

@@ -20,6 +20,9 @@ from repro.kernels.paged_attention import paged_decode_attention as jpaged
 from repro.models.attention import paged_attention as jgather
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels.checks import HEAD_DIMS
+from repro_torch.kernels.decode_attention import lse_merge
+from repro_torch.kernels.flash_attention import head_group
 
 torch.set_num_threads(1)
 
@@ -90,6 +93,121 @@ def test_plain_len_zero_follows_pallas_kernel():
                  jnp.asarray(pt), jnp.asarray(lens), interpret=True)
     np.testing.assert_allclose(got, np.asarray(exp), atol=3e-5, rtol=1e-4)
     assert not got[0].any()
+
+
+# (B, KH, P, PS, tile, SMs): the main-path shapes (smollm, 132 SMs), a
+# table shorter than a tile, pages longer than a tile, many lanes
+PLANS = [(1, 5, 128, 16, 64, 132), (8, 5, 128, 16, 64, 132),
+         (32, 5, 128, 16, 64, 132), (8, 5, 64, 16, 64, 132),
+         (2, 2, 3, 8, 64, 132), (1, 8, 40, 32, 16, 132),
+         (256, 8, 512, 16, 256, 132), (3, 1, 7, 16, 48, 1)]
+
+
+@pytest.mark.parametrize("plan", PLANS)
+def test_split_plan_covers_every_page_once(plan):
+    B, KH, P, PS, tile, sms = plan
+    n, pps = PA.split_plan(B, KH, P, PS, tile, sms)
+    assert n >= 1 and pps >= 1
+    covered = [p for s in range(n)
+               for p in range(s * pps, min((s + 1) * pps, P))]
+    assert covered == list(range(P))         # every page once, in order
+    assert (n - 1) * pps < P                 # no split past the table
+    assert pps * PS >= min(tile, P * PS)     # at least one tile (or all)
+    assert n <= max(1, -(-PA.BLOCKS_PER_SM * sms // (B * KH)))
+
+
+def test_split_plan_fills_the_card_at_small_batch():
+    """B 1 spreads a long row over many blocks; a large batch needs no
+    split at all."""
+    n1, _ = PA.split_plan(1, 5, 128, 16, 64, 132)
+    assert n1 * 5 >= 132
+    assert PA.split_plan(256, 8, 512, 16, 64, 132)[0] == 1
+
+
+def test_split_plan_reads_no_lane_length():
+    """The plan is made on the host from shapes only: neither it nor the
+    wrapper may read ``lens`` back from the card (a sync every layer)."""
+    import inspect
+    assert "lens" not in inspect.signature(PA.split_plan).parameters
+    assert "lens" not in inspect.signature(PA.plan_for).parameters
+    src = inspect.getsource(PA.paged_decode_attention)
+    for call in (".item(", ".tolist(", ".cpu(", "int(lens", "lens.max"):
+        assert call not in src
+
+
+def test_tile_tokens_fill_a_16kb_stage():
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in HEAD_DIMS:
+            t = PA.tile_tokens(dtype, D)
+            item = torch.empty((), dtype=dtype).element_size()
+            assert t * D * item * 2 == 16384 and t % 16 == 0
+
+
+@pytest.mark.parametrize("G,want", [(1, 1), (2, 2), (3, 3), (4, 4), (8, 4)])
+def test_flash_head_group(G, want):
+    """A bf16 flash block holds all G heads of a KV head up to 4, and a
+    group of 4 for G 8 (two blocks per KV head)."""
+    assert head_group(G) == want and G % head_group(G) == 0
+
+
+def _paged_partials_plain(q, k_pages, v_pages, page_table, lens,
+                         n_splits: int, pps: int):
+    """The paged kernel's split partials in plain PyTorch, f32: split s
+    covers the tokens of table entries [s * pps, (s + 1) * pps) of each
+    lane.
+    Returns acc [B, KH, n_splits, G, D] (unnormalised), m and l [B, KH,
+    n_splits, G, 1] (m -inf, l 0, acc 0 for a split with no valid token),
+    which ``decode_attention.lse_merge`` combines into
+    ``paged_decode_attention_plain``'s result."""
+    B, H, D = q.shape
+    _, PS, KH, _ = k_pages.shape
+    P = page_table.shape[1]
+    G = H // KH
+    pad = n_splits * pps - P
+    idx = torch.nn.functional.pad(page_table.long(), (0, pad))
+    S = n_splits * pps * PS
+    k = k_pages[idx].reshape(B, n_splits, pps * PS, KH, D).float()
+    v = v_pages[idx].reshape(B, n_splits, pps * PS, KH, D).float()
+    qg = q.reshape(B, KH, G, D).float()
+    s = torch.einsum("bhgd,bnkhd->bhngk", qg, k) * (D ** -0.5)
+    pos = torch.arange(S, device=q.device).reshape(n_splits, pps * PS)
+    valid = torch.clamp(lens.to(q.device).long(), 0, P * PS)
+    mask = pos[None] < valid[:, None, None]              # [B, ns, chunk]
+    s = s.masked_fill(~mask[:, None, :, None, :], float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    m_safe = torch.where(m == float("-inf"), 0.0, m)
+    p = torch.exp(s - m_safe)
+    l = p.sum(-1, keepdim=True)
+    acc = torch.einsum("bhngk,bnkhd->bhngd", p, v)
+    return acc, m, l
+
+
+def _split_cases():
+    for case in PAGED_CASES:
+        P = case[4]
+        for n in (1, 2, P):
+            yield case, None, n
+    for lens in PAGED_EDGE_LENS:
+        for n in (2, 4):
+            yield (len(lens), 8, 2, 16, 4, 24, 32), lens, n
+
+
+@pytest.mark.parametrize("case,lens,n", list(_split_cases()))
+def test_split_and_merge_matches_pallas_kernel(case, lens, n):
+    """The kernel's arithmetic (whole-page splits, f32 partials, one
+    lse_merge), emulated in plain PyTorch at several n_splits, against the
+    Pallas kernel in interpret mode."""
+    q, k, v, pt, lens = _inputs(*case, seed=case[0] + n, lens=lens)
+    P = pt.shape[1]
+    pps = -(-P // n)
+    n_splits = -(-P // pps)
+    qt = torch.from_numpy(q)
+    got = lse_merge(*_paged_partials_plain(
+        qt, *(torch.from_numpy(a) for a in (k, v, pt, lens)), n_splits,
+        pps)).reshape(qt.shape).numpy()
+    exp = jpaged(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                 jnp.asarray(pt), jnp.asarray(lens), interpret=True)
+    np.testing.assert_allclose(got, np.asarray(exp), atol=3e-5, rtol=1e-4)
 
 
 def test_decode_attention_ref_matches_jax():
