@@ -19,9 +19,11 @@ From the root of a checkout. It
    counterpart of the JAX package's ``benchmarks/bench_kernels.py``)
    on the card with every launch count at 0, holds the split-K decode,
    shared-prefix and flash kernels against their plain versions on every
-   built instantiation and on the JAX package's test cases, and times
-   each at full smollm-360m and mistral-7b head widths beside its bound,
-   its plain version and a PyTorch yardstick;
+   built instantiation (decode also on splits that wrap its stage ring,
+   prefix also on its raw partial) and on the JAX package's test cases,
+   and times each at full smollm-360m and mistral-7b head widths beside
+   its bound, its plain version and a PyTorch yardstick, with the split
+   plans and occupancy launched;
 4. serves a generated workload through ``repro_torch.launch.serve`` at
    the full width of smollm-360m (32 layers, d 960, 15/5 heads, bf16,
    random weights from the seed) on two engine instances, and checks
@@ -130,6 +132,26 @@ def close(torch, name, got, exp, tol):
     return err.max().item()
 
 
+def partial_close(torch, name, got, q, kp, vp, plain):
+    """prefix_partial's raw (acc, m, l) against the plain version's. m and
+    l: f32 on both sides from the same scores (summation order only:
+    atol 1e-3, rtol 1e-4, as the f32 check). acc: the bf16 kernel rounds
+    each probability p to bf16 before P V (as the Pallas kernel does), an
+    error of at most 2^-8 p, so |acc - plain| <= 2^-8 sum_k p_k |v_k|;
+    held to 2^-7 of that sum (the f32 sums' own rounding on top), plus
+    the f32 tolerance. A lost or doubled key tile fails on l."""
+    acc_p, m_p, l_p = plain(q, kp, vp)
+    close(torch, f"{name} m", got[1], m_p, dict(atol=1e-3, rtol=1e-4))
+    close(torch, f"{name} l", got[2], l_p, dict(atol=1e-3, rtol=1e-4))
+    tol = torch.zeros_like(acc_p) + 1e-3 + 1e-4 * acc_p.abs()
+    if q.dtype == torch.bfloat16:
+        tol = tol + 2 ** -7 * plain(q, kp, vp.abs())[0]
+    err = (got[0] - acc_p).abs()
+    check(bool(torch.isfinite(got[0]).all()) and bool((err <= tol).all()),
+          f"{name} acc: max |kernel - plain| {err.max().item():.3e}, "
+          f"{(err / tol).max().item():.3g}x its bound")
+
+
 def compare(torch, PA, name, inputs, tol):
     return close(torch, name, PA.paged_decode_attention(*inputs),
                  PA.paged_decode_attention_plain(*inputs), tol)
@@ -178,7 +200,7 @@ def ptxas_lines(lib, kernel):
                 and not line.split("bytes stack frame, ")[1].startswith("0 "):
             spills.append(f"{name[-24:]}: {line.split(', ', 1)[1].strip()}")
     which = f": {'; '.join(spills)}" if spills else ""
-    print(f"ptxas: {kernel}: {len(regs)} instantiations, "
+    print(f"ptxas: {lib}: {kernel}: {len(regs)} instantiations, "
           f"{min(regs, default=0)}-{max(regs, default=0)} registers/thread, "
           f"{len(spills)} spill{which}")
 
@@ -340,6 +362,54 @@ def bound(bytes_, flops):
     return max(b_ms, f_ms), ("bytes" if b_ms >= f_ms else "operations")
 
 
+def full_width_cases(torch, seed=3):
+    """The library calls timed at full head widths, bf16, random tensors
+    from ``seed`` (the same inputs whatever ran before): flash causal B 1
+    S 2048 (smollm-360m: H 15 / KH 5, D 64) and S 8192 with the 4096 window
+    (mistral-7b: H 32 / KH 8, D 128); decode B 8 over S 2048 / 8192 with
+    ragged lens (one full lane); shared-prefix decode B 32, prefix 4096,
+    suffixes <= 256. Each with the bytes its function must move (inputs
+    read once, outputs written once, only the valid KV of ragged lanes)
+    and its flops (4 D per visible (query, key) pair). Also read by
+    tools/time_launches.py."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bf = torch.bfloat16
+    widths = (("smollm-360m", 15, 5, 64), ("mistral-7b", 32, 8, 128))
+    cases = []
+    for (width, H, KH, D), (S, win) in zip(widths, ((2048, 0), (8192, 4096))):
+        q, k, v = (rand(torch, g, bf, 1, H, S, D),
+                   rand(torch, g, bf, 1, KH, S, D),
+                   rand(torch, g, bf, 1, KH, S, D))
+        cases.append(dict(kind="flash", width=width, B=1, H=H, KH=KH, D=D,
+                          window=win, args=(q, k, v),
+                          bytes=2 * (2 * q.numel() + 2 * k.numel()),
+                          flops=4 * D * H * visible_pairs(S, S, True, win)))
+    for (width, H, KH, D), S in zip(widths, (2048, 8192)):
+        B = 8
+        q = rand(torch, g, bf, B, H, D)
+        k, v = rand(torch, g, bf, B, KH, S, D), rand(torch, g, bf, B, KH, S, D)
+        lens = ragged(torch, g, B, S)
+        ntok = int(lens.sum())
+        cases.append(dict(kind="decode", width=width, B=B, H=H, KH=KH, D=D,
+                          args=(q, k, v, lens),
+                          bytes=ntok * KH * D * 2 * 2 + 2 * q.numel() * 2
+                          + B * 4, flops=4 * ntok * H * D))
+    for width, H, KH, D in widths:
+        B, Sp, Ss = 32, 4096, 256
+        q = rand(torch, g, bf, B, H, D)
+        kp, vp = rand(torch, g, bf, KH, Sp, D), rand(torch, g, bf, KH, Sp, D)
+        ks, vs = (rand(torch, g, bf, B, KH, Ss, D),
+                  rand(torch, g, bf, B, KH, Ss, D))
+        lens = ragged(torch, g, B, Ss)
+        ntok = int(lens.sum())
+        cases.append(dict(kind="prefix", width=width, B=B, H=H, KH=KH, D=D,
+                          args=(q, kp, vp, ks, vs, lens),
+                          bytes=2 * KH * Sp * D * 2 + ntok * KH * D * 2 * 2
+                          + 2 * q.numel() * 2 + B * 4,
+                          flops=4 * H * D * (B * Sp + ntok)))
+    return cases
+
+
 def library_phase(torch, bench, DA, PF, FA):
     """bench: the library's benchmark entry point; DA, PF, FA: the
     decode, prefix and flash kernel modules. Returns the launch counts of
@@ -399,6 +469,27 @@ def library_phase(torch, bench, DA, PF, FA):
                           dec(q, k, v, lens, n_splits=4),
                           dec_plain(q, k, v, lens, n_splits=4), tol)
                 worst[("decode", dt)] = max(worst.get(("decode", dt), 0), e)
+                # 400 (lane, head) pairs: 7 tiles a row plan one split (the
+                # block writes q's dtype), 9 tiles two splits of 5 (merged);
+                # either wraps the 3-stage ring
+                tile = DA.tile_tokens(dt, D)
+                for n_tiles in (7, 9):
+                    S = n_tiles * tile
+                    q = rand(torch, g, dt, 50, G * 8, D)
+                    k, v = (rand(torch, g, dt, 50, 8, S, D),
+                            rand(torch, g, dt, 50, 8, S, D))
+                    lens = torch.randint(1, S + 1, (50,), generator=g,
+                                         device="cuda").to(torch.int32)
+                    lens[:3] = torch.tensor([S, 1, 0])
+                    ns, split_len = DA.plan_for(q, k)
+                    check(split_len > 3 * tile and ns == (n_tiles > 7) + 1,
+                          f"decode {dt} G{G} D{D}: plan {ns} x {split_len} "
+                          "does not wrap the ring")
+                    e = close(torch, f"decode {dt} G{G} D{D} ring {ns} splits",
+                              dec(q, k, v, lens), dec_plain(q, k, v, lens),
+                              tol)
+                    worst[("decode", dt)] = max(worst.get(("decode", dt), 0),
+                                                e)
                 # B * G folded rows: <= 64 (4 rows a thread), <= 128 (8),
                 # > 128 (two row tiles)
                 for B in (2, -(-65 // G), -(-129 // G)):
@@ -413,6 +504,9 @@ def library_phase(torch, bench, DA, PF, FA):
                               pre_plain(q, kp, vp, ks, vs, sl), tol)
                     worst[("prefix", dt)] = max(worst.get(("prefix", dt), 0),
                                                 e)
+                    partial_close(torch, f"prefix {dt} G{G} D{D} B{B} partial",
+                                  part(q, kp, vp, block_k=64), q, kp, vp,
+                                  part_plain)
     print("library: every instantiation agrees with its plain version "
           "(flash dtype x D x 5 masks, decode dtype x G x D, prefix dtype x "
           "G x D x 3 row counts); max err " + ", ".join(
@@ -444,15 +538,15 @@ def library_phase(torch, bench, DA, PF, FA):
         lens = ragged(torch, g, B, Ss)
         e = close(torch, f"PRE_CASES[{j}]", pre(q, kp, vp, ks, vs, lens),
                   pre_plain(q, kp, vp, ks, vs, lens), F32)
-        for got, exp in zip(part(q, kp, vp), part_plain(q, kp, vp)):
-            close(torch, f"PRE_CASES[{j}] partial", got, exp,
-                  dict(atol=1e-3, rtol=1e-4))
+        partial_close(torch, f"PRE_CASES[{j}] partial", part(q, kp, vp), q,
+                      kp, vp, part_plain)
         print(f"library: PRE_CASES[{j}] {bench.PRE_CASES[j]} max_err={e:.3e} "
               "(and prefix_partial's raw acc, m, l)")
 
     # 3. full widths, bf16: kernel, plain version and a PyTorch yardstick
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     bf = torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
 
     def measure(kind, width, kernel, plain, library, bytes_, flops,
@@ -472,96 +566,89 @@ def library_phase(torch, bench, DA, PF, FA):
         print(f"library: {kind} " + json.dumps(row))
         out.setdefault(kind, []).append(row)
 
-    for width, H, KH, D, S, win in (("smollm-360m", 15, 5, 64, 2048, 0),
-                                    ("mistral-7b", 32, 8, 128, 8192, 4096)):
-        q, k, v = (rand(torch, g, bf, 1, H, S, D),
-                   rand(torch, g, bf, 1, KH, S, D),
-                   rand(torch, g, bf, 1, KH, S, D))
-        if win:
-            pos = torch.arange(S, device="cuda")
-            mask = (pos[None, :] <= pos[:, None]) \
-                & (pos[None, :] > pos[:, None] - win)
+    for case in full_width_cases(torch):
+        kind, width, args = case["kind"], case["width"], case["args"]
+        B, H, D = case["B"], case["H"], case["D"]
+        KH = case["KH"]
+        if kind == "flash":
+            q, k, v = args
+            win, S = case["window"], q.shape[2]
+            if win:
+                pos = torch.arange(S, device="cuda")
+                mask = (pos[None, :] <= pos[:, None]) \
+                    & (pos[None, :] > pos[:, None] - win)
 
-            def library(q=q, k=k, v=v, mask=mask):
-                return sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+                def library(q=q, k=k, v=v, mask=mask):
+                    return sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+            else:
+                def library(q=q, k=k, v=v):
+                    return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+            measure("flash", width,
+                    lambda a=args, w=win: fla(*a, window=w),
+                    lambda a=args, w=win: fla_plain(*a, window=w),
+                    library, case["bytes"], case["flops"],
+                    plain_n=3 if win else 10, library_n=10 if win else 30)
+        elif kind == "decode":
+            q, k, v, lens = args
+            S = k.shape[2]
+            mask = (torch.arange(S, device="cuda")[None, :]
+                    < lens[:, None])[:, None, None, :]
+            measure("decode", width,
+                    lambda a=args: dec(*a, n_splits=8),
+                    lambda a=args: dec_plain(*a, n_splits=8),
+                    lambda q=q, k=k, v=v, m=mask: sdpa(
+                        q[:, :, None], k, v, attn_mask=m,
+                        enable_gqa=True)[:, :, 0],
+                    case["bytes"], case["flops"])
+            ns, split_len = DA.plan_for(q, k)
+            blocks, regs, smem, tile = DA.occupancy(bf, H // KH, D)
+            print(f"library: decode plan {width} B{B} S{S}: {ns} splits of "
+                  f"{split_len} keys ({tile}-key tiles), grid {ns * KH * B} "
+                  f"blocks on {sms} SMs, {1 if ns == 1 else 2} launches a "
+                  f"call; {blocks} resident blocks/SM x 128 threads, {regs} "
+                  f"registers/thread, {smem} B dynamic shared")
         else:
-            def library(q=q, k=k, v=v):
-                return sdpa(q, k, v, is_causal=True, enable_gqa=True)
-        measure("flash", width,
-                lambda q=q, k=k, v=v, w=win: fla(q, k, v, window=w),
-                lambda q=q, k=k, v=v, w=win: fla_plain(q, k, v, window=w),
-                library, 2 * (2 * q.numel() + 2 * k.numel()),
-                4 * D * H * visible_pairs(S, S, True, win),
-                plain_n=3 if win else 10, library_n=10 if win else 30)
+            q, kp, vp, ks, vs, lens = args
+            Sp, Ss = kp.shape[1], ks.shape[2]
+            # the yardstick's inputs: each request's [prefix ++ suffix],
+            # built here and not timed; SDPA then reads the prefix B times
+            kc = torch.cat([kp[None].expand(B, -1, -1, -1), ks], dim=2)
+            vc = torch.cat([vp[None].expand(B, -1, -1, -1), vs], dim=2)
+            mask = (torch.arange(Sp + Ss, device="cuda")[None, :]
+                    < (Sp + lens)[:, None])[:, None, None, :]
+            measure("prefix", width,
+                    lambda a=args: pre(*a), lambda a=args: pre_plain(*a),
+                    lambda q=q, kc=kc, vc=vc, m=mask: sdpa(
+                        q[:, :, None], kc, vc, attn_mask=m,
+                        enable_gqa=True)[:, :, 0],
+                    case["bytes"], case["flops"])
+            (n_pre, chunk), (n_sfx, sfx_len) = PF.plan_for(q, kp, ks)
+            blocks, regs, smem, threads = PF.occupancy(bf, D, B * H // KH)
+            tiles = -(-B * H // KH // 128)
+            print(f"library: prefix plan {width} B{B} Sp{Sp} Ss{Ss}: prefix "
+                  f"{n_pre} splits of {chunk} keys x {tiles} row tiles x {KH} "
+                  f"KV heads = {n_pre * tiles * KH} blocks on {sms} SMs "
+                  f"({blocks} resident blocks/SM x {threads} threads, {regs} "
+                  f"registers/thread, {smem} B shared); suffix {n_sfx} "
+                  f"splits of {sfx_len} keys = {n_sfx * KH * B} blocks "
+                  f"beside the prefix half (on a second stream); merge of "
+                  f"{n_pre + n_sfx} slots; 3 launches a call")
 
-    for width, H, KH, D, S in (("smollm-360m", 15, 5, 64, 2048),
-                               ("mistral-7b", 32, 8, 128, 8192)):
-        B = 8
-        q = rand(torch, g, bf, B, H, D)
-        k, v = rand(torch, g, bf, B, KH, S, D), rand(torch, g, bf, B, KH, S, D)
-        lens = ragged(torch, g, B, S)
-        mask = (torch.arange(S, device="cuda")[None, :]
-                < lens[:, None])[:, None, None, :]
-        ntok = int(lens.sum())
-        measure("decode", width,
-                lambda q=q, k=k, v=v, n=lens: dec(q, k, v, n, n_splits=8),
-                lambda q=q, k=k, v=v, n=lens: dec_plain(q, k, v, n,
-                                                        n_splits=8),
-                lambda q=q, k=k, v=v, m=mask: sdpa(
-                    q[:, :, None], k, v, attn_mask=m,
-                    enable_gqa=True)[:, :, 0],
-                ntok * KH * D * 2 * 2 + 2 * q.numel() * 2 + B * 4,
-                4 * ntok * H * D)
-
-    for width, H, KH, D in (("smollm-360m", 15, 5, 64),
-                            ("mistral-7b", 32, 8, 128)):
-        B, Sp, Ss = 32, 4096, 256
-        q = rand(torch, g, bf, B, H, D)
-        kp, vp = rand(torch, g, bf, KH, Sp, D), rand(torch, g, bf, KH, Sp, D)
-        ks, vs = (rand(torch, g, bf, B, KH, Ss, D),
-                  rand(torch, g, bf, B, KH, Ss, D))
-        lens = ragged(torch, g, B, Ss)
-        # the yardstick's inputs: each request's [prefix ++ suffix], built
-        # here and not timed; SDPA then reads the prefix B times
-        kc = torch.cat([kp[None].expand(B, -1, -1, -1), ks], dim=2)
-        vc = torch.cat([vp[None].expand(B, -1, -1, -1), vs], dim=2)
-        mask = (torch.arange(Sp + Ss, device="cuda")[None, :]
-                < (Sp + lens)[:, None])[:, None, None, :]
-        ntok = int(lens.sum())
-        measure("prefix", width,
-                lambda q=q, a=(kp, vp, ks, vs, lens): pre(q, *a),
-                lambda q=q, a=(kp, vp, ks, vs, lens): pre_plain(q, *a),
-                lambda q=q, kc=kc, vc=vc, m=mask: sdpa(
-                    q[:, :, None], kc, vc, attn_mask=m,
-                    enable_gqa=True)[:, :, 0],
-                2 * KH * Sp * D * 2 + ntok * KH * D * 2 * 2
-                + 2 * q.numel() * 2 + B * 4,
-                4 * H * D * (B * Sp + ntok))
-
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for dt_name, G, D in (("bf16", 3, 64), ("bf16", 4, 128)):
-        blocks, regs, smem = DA.occupancy(bf, G, D)
-        print(f"library: occupancy decode partial {dt_name} G{G} D{D}: "
-              f"{blocks} resident blocks/SM x 128 threads, {regs} "
-              f"registers/thread, {smem} B shared; grid n_splits*KH*B = "
-              f"{8 * (5 if G == 3 else 8) * 8} blocks on {sms} SMs")
-        rt = 8                                  # B 32 x G 3 or 4 > 64 rows
-        blocks, regs, smem = PF.occupancy(bf, D, rt)
-        n_split, chunk = PF.split_layout(4096, 5 if G == 3 else 8, 128, sms)
-        print(f"library: occupancy prefix {dt_name} D{D} rows/thread {rt}: "
-              f"{blocks} resident blocks/SM x 256 threads, {regs} "
-              f"registers/thread, {smem} B shared; grid {n_split} splits of "
-              f"{chunk} keys x {5 if G == 3 else 8} KV heads")
+    for G, D in ((3, 64), (4, 128)):
         blocks, regs, smem, threads = FA.occupancy(bf, D)
         KH, S = (5, 2048) if G == 3 else (8, 8192)
         gh = FA.head_group(G)
         pos = 128 // gh
-        print(f"library: occupancy flash {dt_name} D{D} G{G} (wgmma, {gh} "
+        print(f"library: occupancy flash bf16 D{D} G{G} (wgmma, {gh} "
               f"heads x {pos} positions a block): {blocks} resident "
               f"blocks/SM x {threads} threads, {regs} registers/thread, "
               f"{smem} B shared; grid {-(-S // pos)} x {KH * G // gh} = "
               f"{-(-S // pos) * KH * G // gh} blocks on {sms} SMs")
-    ptxas_lines("flash_attention", "flash_wgmma_kernel")
+    for lib, kernel in (("flash_attention", "flash_wgmma_kernel"),
+                        ("decode_attention", "dense_split_kernel"),
+                        ("prefix_attention", "prefix_wgmma_kernel"),
+                        ("prefix_attention", "dense_split_kernel")):
+        ptxas_lines(lib, kernel)
     return launches, out
 
 

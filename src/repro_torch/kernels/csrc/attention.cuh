@@ -1,17 +1,24 @@
-// Building blocks of the port's attention kernels (decode, prefix, flash).
+// Building blocks of the port's attention kernels.
 //
-//   split_partial_kernel  one block per (split, KV head, lane): the G query
-//                         rows of a KV head against one chunk of that lane's
-//                         K/V, online softmax in f32, unnormalised partial
-//                         (acc, m, l) written to one slot of a partial
-//                         buffer [B, KH, n_slots, G, D] (m, l: [.., G]).
-//   lse_merge_kernel      combines the slots of each row: normalised output
-//                         in the caller's dtype, or one combined partial.
+//   lse_merge_kernel      combines the f32 (acc, m, l) partial slots of
+//                         every row: normalised output in the caller's
+//                         dtype, or one combined partial (the split-KV
+//                         decodes of split_kv.cuh and the prefix halves of
+//                         prefix_attention.cu write the slots).
 //   tile_attend           a 256-thread block's online softmax of a tile of
 //                         BQ query rows (16 * RT) against a key range, in
 //                         64-key tiles staged through shared memory as f32,
 //                         with CUDA-core products: S = Q K^T as RT x 4 scores
 //                         per thread, P V as RT x D/16 outputs per thread.
+//                         The f32 paths of flash and shared-prefix decode
+//                         (f32 accuracy, so no tensor cores); the bf16 ones
+//                         run on wgmma (wgmma.cuh).
+//
+// What bounds them: the merge reads n_slots f32 partials per output
+// element once (bytes); tile_attend's f32 FMAs (operations: the CUDA
+// cores' 67 TFLOP/s, not the tensor cores'). Not done yet (later work):
+// cp.async or TMA staging in tile_attend; a merge fused into the kernels
+// that write the partials.
 //
 // Layouts: K/V rows are reached through element strides (batch, head,
 // position), the last dim contiguous, so one kernel reads both the
@@ -23,148 +30,9 @@
 
 namespace repro {
 
-constexpr int kSplitThreads = 128;  // one token of a 128-token tile each
 constexpr int kMergeThreads = 128;
 constexpr int kTileThreads = 256;   // a 16 x 16 grid of threads
 constexpr int kTileK = 64;          // keys per shared-memory tile
-
-// ---------------------------------------------------------------------------
-// split partials
-// ---------------------------------------------------------------------------
-
-// grid (n_split, KH, B). q: [B, H, D] contiguous. Lane b's valid keys are
-// [0, min(lens[b], S)); split si takes [si*chunk, (si+1)*chunk) of them and
-// writes slot slot0 + si. An empty split writes acc 0, m -inf, l 0, as the
-// Pallas kernel's fully masked block does.
-template <typename T, int G, int D>
-__global__ void __launch_bounds__(kSplitThreads)
-split_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int32_t* __restrict__ lens,
-                     float* __restrict__ acc_out, float* __restrict__ m_out,
-                     float* __restrict__ l_out, int H, int KH, int S, int chunk,
-                     int n_slots, int slot0, long long kv_sb, long long kv_sh,
-                     long long kv_ss, float scale) {
-  constexpr int kThreads = kSplitThreads;
-  constexpr int kTile = kThreads;
-  constexpr int kWarps = kThreads / 32;
-  constexpr int kVec = Vec<T>::n;
-  static_assert(D % kVec == 0, "D must fill whole 16-byte vectors");
-  constexpr int kGroups = kThreads / D;  // token groups in the PV pass
-  static_assert(kThreads % D == 0, "D must divide the block");
-
-  __shared__ float q_s[G][D];
-  __shared__ float p_s[G][kTile];
-  __shared__ float red_s[G][kWarps];
-  __shared__ float m_s[G], l_s[G], corr_s[G];
-  __shared__ float acc_s[kGroups][G][D];
-
-  const int si = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-
-  const T* qb = q + ((size_t)b * H + (size_t)h * G) * D;
-  for (int i = tid; i < G * D; i += kThreads) q_s[i / D][i % D] = to_f32(qb[i]);
-  if (tid < G) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
-  }
-  int len = lens[b];
-  len = len < 0 ? 0 : (len > S ? S : len);
-  const int t_begin = si * chunk;
-  const int t_end = min(t_begin + chunk, len);
-  const T* kb = k + b * kv_sb + h * kv_sh;
-  const T* vb = v + b * kv_sb + h * kv_sh;
-
-  // PV pass ownership: column d, tokens t with t % kGroups == j
-  const int d = tid % D, j = tid / D;
-  float acc[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) acc[g] = 0.f;
-  __syncthreads();
-
-  for (int t0 = t_begin; t0 < t_end; t0 += kTile) {
-    const int pos = t0 + tid;
-    const bool valid = pos < t_end;
-    float s[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) s[g] = -INFINITY;
-    if (valid) {
-      const T* krow = kb + pos * kv_ss;
-#pragma unroll
-      for (int g = 0; g < G; ++g) s[g] = 0.f;
-#pragma unroll
-      for (int c = 0; c < D; c += kVec) {
-        float kf[kVec];
-        load16(krow + c, kf);
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) {
-#pragma unroll
-          for (int g = 0; g < G; ++g) s[g] = fmaf(q_s[g][c + e], kf[e], s[g]);
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g) s[g] *= scale;
-    }
-
-    // tile max per row -> new running max and the rescale of old partials
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float m = warp_max(s[g]);
-      if (lane == 0) red_s[g][warp] = m;
-    }
-    __syncthreads();
-    if (tid < G) {
-      float m = red_s[tid][0];
-#pragma unroll
-      for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red_s[tid][w]);
-      const float m_new = fmaxf(m_s[tid], m);  // finite: token t0 is valid
-      corr_s[tid] = expf(m_s[tid] - m_new);    // exp(-inf) = 0 on tile 0
-      m_s[tid] = m_new;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float p = valid ? expf(s[g] - m_s[g]) : 0.f;
-      p_s[g][tid] = p;
-      const float ps = warp_sum(p);
-      if (lane == 0) red_s[g][warp] = ps;
-    }
-    __syncthreads();
-    if (tid < G) {
-      float l = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) l += red_s[tid][w];
-      l_s[tid] = l_s[tid] * corr_s[tid] + l;
-    }
-
-#pragma unroll
-    for (int g = 0; g < G; ++g) acc[g] *= corr_s[g];
-    const int n_tile = min(kTile, t_end - t0);
-    for (int t = j; t < n_tile; t += kGroups) {
-      const float vf = to_f32(vb[(t0 + t) * kv_ss + d]);
-#pragma unroll
-      for (int g = 0; g < G; ++g) acc[g] = fmaf(p_s[g][t], vf, acc[g]);
-    }
-    __syncthreads();  // p_s and red_s are rewritten by the next tile
-  }
-
-#pragma unroll
-  for (int g = 0; g < G; ++g) acc_s[j][g][d] = acc[g];
-  __syncthreads();
-  const size_t row0 = (((size_t)b * KH + h) * n_slots + slot0 + si) * G;
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int g = i / D, dd = i % D;
-    float o = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < kGroups; ++jj) o += acc_s[jj][g][dd];
-    acc_out[(row0 + g) * D + dd] = o;
-  }
-  if (tid < G) {
-    m_out[row0 + tid] = m_s[tid];
-    l_out[row0 + tid] = l_s[tid];
-  }
-}
 
 // ---------------------------------------------------------------------------
 // LSE merge of the slots of every row

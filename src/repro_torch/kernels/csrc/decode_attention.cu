@@ -11,48 +11,72 @@
 // query rows of its head, 4*G flops per element, far below the ~295
 // flop/byte at which an H100 stops being memory-bound. The least traffic is
 // the valid KV, sum_b min(len_b, S) * KH * D * 2 * itemsize, plus q and out.
+// With ragged lanes the lanes' valid keys, not S, set the work, and the
+// longest lane sets the time unless its keys are spread over many blocks.
 //
 // What the design does about it:
-//   * one block per (split, KV head, lane): the n_splits chunks of S are
-//     separate blocks, so a small batch still puts B * KH * n_splits blocks
-//     on the 132 SMs (the TPU runs the same grid in order on one core);
-//   * the block holds its head's G query rows in shared memory and reads
-//     each K row once with 16-byte loads for all G of them; a split past a
-//     lane's length reads nothing;
-//   * partials (acc, m, l) go to an f32 scratch buffer that the wrapper
-//     allocates, and a second small kernel merges them per (row, column)
-//     with the Pallas wrapper's lse_merge arithmetic, writing q's dtype.
-// Not done yet (later work): staging K/V tiles through shared memory with
-// cp.async/TMA, and tensor-core products for G >= 8.
+//   * split-KV, grid (n_splits, KH, B), built on the body of split_kv.cuh
+//     (shared with paged decode and the suffix of shared-prefix decode):
+//     K/V tiles of 16 KB staged by cp.async through a 3-stage ring, lanes
+//     of a warp splitting D with the q slice in registers, softmax state
+//     per lane group, one block barrier a tile, V read as 16-byte vectors
+//     from shared memory. The row-address policy is DenseRows: base +
+//     pos * stride, so the model layout needs no copy;
+//   * the split plan (n_splits, split length in whole tiles) is made on
+//     the host from B, KH, S, the tile and the SM count only, never from
+//     lens (that would sync): about 8 blocks per SM, so that the block
+//     scheduler evens out ragged lanes (splits past a lane's length exit
+//     at once), with at least one wave of blocks at B 1. The Pallas clamp
+//     of the public n_splits does not apply here: the merged output does
+//     not depend on the split beyond f32 rounding;
+//   * one split: the block normalises and writes q's dtype (one launch).
+//     More: f32 partials in one scratch buffer and lse_merge_kernel.
+// Measured on an H100 80GB HBM3 at 700 W (tools/ablate_decode.py, B 8,
+// S 8192, KH 8, D 128, every lane full): the copies alone move the cache
+// at about 2.6 TB/s, 77 % of the data sheet's rate, and the products and
+// softmax alone take two thirds of that time, so the kernel is bound by
+// its copies, not by instruction issue; with ragged lanes the longest
+// lanes' splits add a tail.
+// Not done yet (later work): bulk (TMA) copies into a deeper ring,
+// persistent blocks taking splits longest lane first, and a merge inside
+// the split kernel (the last block of a (lane, head) merges), which
+// would save the second launch.
 #include "attention.cuh"
+#include "split_kv.cuh"
 
 namespace {
 
-struct PartialFn {
+namespace skv = repro::skv;
+
+struct LaunchFn {
   const void *q, *k, *v, *lens;
+  void* out;
   float *acc, *m, *l;
-  int B, H, KH, S, n_split, chunk;
+  int B, H, KH, S, n_split, split_len;
   long long kv_sb, kv_sh, kv_ss;
   cudaStream_t stream;
   cudaError_t* err;
   template <typename T, int G, int D>
   void operator()() const {
-    const dim3 grid(n_split, KH, B);
-    repro::split_partial_kernel<T, G, D><<<grid, repro::kSplitThreads, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const int32_t*>(lens), acc, m, l,
-        H, KH, S, chunk, n_split, 0, kv_sb, kv_sh, kv_ss, repro::inv_sqrt(D));
-    *err = cudaGetLastError();
+    const bool direct = n_split == 1;
+    *err = skv::launch_dense_split<T, G, D>(
+        q, k, v, lens, out, direct ? nullptr : acc, m, l, B, H, KH, S,
+        n_split, split_len, n_split, 0, kv_sb, kv_sh, kv_ss, stream);
+    if (*err != cudaSuccess || direct) return;
+    *err = repro::launch_lse_merge<T>(acc, m, l, B * H, G, n_split, D,
+                                      static_cast<T*>(out), nullptr, nullptr,
+                                      nullptr, stream);
   }
 };
 
 struct QueryFn {
-  int *blocks, *regs, *smem;
+  int *blocks, *regs, *smem, *tile;
   cudaError_t* err;
   template <typename T, int G, int D>
   void operator()() const {
-    *err = repro::occupancy(&repro::split_partial_kernel<T, G, D>,
-                            repro::kSplitThreads, 0, blocks, regs, smem);
+    *tile = skv::Cfg<T, D>::TT;
+    *err = repro::occupancy(&skv::dense_split_kernel<T, G, D>, skv::kThreads,
+                            skv::Cfg<T, D>::ring_bytes, blocks, regs, smem);
   }
 };
 
@@ -62,47 +86,38 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q/out [B, H, D] contiguous; k and v
 // share the element strides kv_sb, kv_sh, kv_ss of their batch, head and
-// position dims (last dim contiguous); lens [B] int32; acc [B, KH,
-// n_split, G, D], m and l [B, KH, n_split, G] f32 scratch. Split si covers
-// positions [si * chunk, (si + 1) * chunk). Returns the cudaError_t of the
-// launches (0 = success); cudaErrorInvalidValue when (dtype, G, D) has no
-// instantiation.
+// position dims (last dim contiguous); lens [B] int32. Split si covers
+// positions [si * split_len, (si + 1) * split_len). With n_split > 1, acc
+// [B, KH, n_split, G, D] and m, l [B, KH, n_split, G] are f32 scratch
+// (unused with one split). Returns the cudaError_t of the launches (0 =
+// success); cudaErrorInvalidValue when (dtype, G, D) has no instantiation.
 int repro_decode_attention(const void* q, const void* k, const void* v,
                            const void* lens, void* acc, void* m, void* l,
                            void* out, int B, int H, int KH, int D, int S,
-                           int n_split, int chunk, long long kv_sb,
+                           int n_split, int split_len, long long kv_sb,
                            long long kv_sh, long long kv_ss, int dtype,
                            void* stream) {
   if (B <= 0 || KH <= 0 || H % KH != 0 || S <= 0 || n_split <= 0 ||
-      chunk <= 0)
+      split_len <= 0 || (long long)n_split * split_len < S ||
+      (n_split > 1 && (acc == nullptr || m == nullptr || l == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* accf = static_cast<float*>(acc);
-  float* mf = static_cast<float*>(m);
-  float* lf = static_cast<float*>(l);
   cudaError_t err = cudaSuccess;
-  const PartialFn f{q, k, v, lens, accf, mf, lf, B, H, KH, S, n_split, chunk,
-                    kv_sb, kv_sh, kv_ss, st, &err};
+  const LaunchFn f{q, k, v, lens, out,
+                   static_cast<float*>(acc), static_cast<float*>(m),
+                   static_cast<float*>(l), B, H, KH, S, n_split, split_len,
+                   kv_sb, kv_sh, kv_ss, static_cast<cudaStream_t>(stream),
+                   &err};
   if (!repro::dispatch_dtype_gd(dtype, H / KH, D, f))
     return (int)cudaErrorInvalidValue;
-  if (err != cudaSuccess) return (int)err;
-  if (dtype == 0)
-    err = repro::launch_lse_merge<float>(accf, mf, lf, B * H, H / KH, n_split,
-                                         D, static_cast<float*>(out), nullptr,
-                                         nullptr, nullptr, st);
-  else
-    err = repro::launch_lse_merge<__nv_bfloat16>(
-        accf, mf, lf, B * H, H / KH, n_split, D,
-        static_cast<__nv_bfloat16*>(out), nullptr, nullptr, nullptr, st);
   return (int)err;
 }
 
-// Occupancy of the partial kernel for one (dtype, G, D): resident blocks
-// per SM, registers per thread, shared bytes.
+// Occupancy of the split kernel for one (dtype, G, D): resident blocks
+// per SM, registers per thread, shared bytes (dynamic), tokens per tile.
 int repro_decode_occupancy(int dtype, int G, int D, int* blocks_per_sm,
-                           int* regs, int* smem_bytes) {
+                           int* regs, int* smem_bytes, int* tile) {
   cudaError_t err = cudaSuccess;
-  const QueryFn f{blocks_per_sm, regs, smem_bytes, &err};
+  const QueryFn f{blocks_per_sm, regs, smem_bytes, tile, &err};
   if (!repro::dispatch_dtype_gd(dtype, G, D, f))
     return (int)cudaErrorInvalidValue;
   return (int)err;

@@ -4,29 +4,43 @@ kernel and its plain PyTorch version.
 Replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py::
 decode_attention`` (grid (B, KH, n_splits) of per-chunk softmax partials
 merged by the jnp ``lse_merge``). The CUDA source is
-``csrc/decode_attention.cu``; its header says what bounds the kernel on an
-H100 (memory: the valid KV bytes) and what its design does about that
-(one block per (split, KV head, lane), the G query rows of a head sharing
-each K row read, partials in an f32 scratch buffer, a second small kernel
-for the merge).
+``csrc/decode_attention.cu``, built on the split-KV body of
+``csrc/split_kv.cuh``; its header says what bounds the kernel on an H100
+(memory: the valid KV bytes) and what its design does about that (K/V
+tiles staged by a cp.async ring, lanes of a warp splitting D with the G
+query rows in registers, per-lane-group softmax state, f32 partials in
+one scratch buffer merged by a second small kernel).
+
+``split_plan`` chooses the splits on the host from B, KH, S, the tile and
+the SM count only, never from ``lens`` (reading them back would sync).
+The public ``n_splits`` keeps its meaning for the plain version
+(``split_layout`` is the Pallas clamp, so the CPU result matches the JAX
+kernel's split for split); on the card the kernel uses its own plan,
+since the merged output does not depend on the split beyond f32
+rounding.
 
 ``decode_attention`` takes the plain version only for tensors that lie on
 the CPU. For CUDA tensors it launches the kernel or raises; it never falls
 back. ``decode_attention.launches`` counts calls that launched the kernel
-(the partial kernel and its merge), never plain-version calls.
+(one launch with one split, the split kernel and its merge otherwise),
+never plain-version calls.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
 from . import build, checks
+from .paged_attention import tile_tokens
 
 NEG_INF = float("-inf")
 _LIB = "decode_attention"
+BLOCKS_PER_SM = 8        # the split plan's aim: two waves of ~4 blocks/SM
+MIN_TILES = 4            # tiles a split holds when the card is full anyway
 
 
 def split_layout(S: int, n_splits: int) -> Tuple[int, int]:
@@ -85,17 +99,40 @@ def decode_attention_plain(q, k, v, lens, *, n_splits: int = 8):
     return lse_merge(acc, m, l).reshape(B, H, D).to(q.dtype)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load(_LIB)
+def split_plan(B: int, KH: int, S: int, tile: int,
+               sms: int) -> Tuple[int, int]:
+    """(n_splits, keys per split) of the kernel for a batch of B lanes of
+    S keys: each split a whole number of ``tile``-key tiles; about
+    BLOCKS_PER_SM blocks on each of ``sms`` SMs, so that the block
+    scheduler evens out ragged lanes; no split shorter than MIN_TILES
+    tiles unless that leaves less than one block per SM (B 1), and then
+    down to one tile. Host-known values only: no lane length is read."""
+    n_tiles = -(-S // tile)
+    lanes = max(1, B * KH)
+    want = -(-sms * BLOCKS_PER_SM // lanes)
+    wave = -(-sms // lanes)
+    most = max(n_tiles // MIN_TILES, min(wave, n_tiles), 1)
+    n = max(1, min(want, most))
+    per = -(-n_tiles // n)                   # tiles a split
+    if -(-n_tiles // per) * lanes < sms:     # short of a wave: round down
+        per = max(1, n_tiles // n)
+    return -(-n_tiles // per), per * tile
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.repro_decode_attention
     if fn.argtypes is None:             # first load: declare the C types
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
             + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         occ = lib.repro_decode_occupancy
-        occ.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
+        occ.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 4
         occ.restype = ctypes.c_int
     return lib
+
+
+def _lib() -> ctypes.CDLL:
+    return _declare(build.load(_LIB))
 
 
 def _check_cuda(q, k, v, lens) -> None:
@@ -120,30 +157,57 @@ def _check_cuda(q, k, v, lens) -> None:
     checks.rows_readable(fn, q=q, k=k, v=v)
 
 
+@functools.lru_cache(maxsize=None)
+def _plan(B: int, KH: int, S: int, dtype: torch.dtype, D: int,
+          device: torch.device) -> Tuple[int, int]:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return split_plan(B, KH, S, tile_tokens(dtype, D), sms)
+
+
+def plan_for(q, k) -> Tuple[int, int]:
+    """The (n_splits, keys per split) that ``decode_attention`` launches
+    for these CUDA tensors (cached per shape, dtype and card)."""
+    return _plan(q.shape[0], k.shape[1], k.shape[2], q.dtype, q.shape[2],
+                 q.device)
+
+
 def decode_attention(q, k, v, lens, *, n_splits: int = 8):
     """Split-K decode attention; see the module doc. q [B, H, D]; k/v
     [B, KH, S, D], any strides with the last dim contiguous (a transposed
     view of the model layout [B, S, KH, D] is read in place); lens [B]
-    int32. Returns [B, H, D] in q's dtype."""
+    int32. Returns [B, H, D] in q's dtype. ``n_splits``: the Pallas
+    kernel's split count, followed by the plain version; the card's
+    kernel uses ``plan_for``."""
     if not checks.on_cuda("decode_attention", q):
         return decode_attention_plain(q, k, v, lens, n_splits=n_splits)
     _check_cuda(q, k, v, lens)
+    return _launch(q, k, v, lens, plan_for(q, k))
+
+
+def _launch(q, k, v, lens, plan: Tuple[int, int]):
+    """Run the kernel with ``plan`` = (n_splits, keys per split), checked
+    CUDA tensors (the plan of ``plan_for``, or another for measuring it)."""
     B, H, D = q.shape
     KH, S = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if B == 0:
         return out
-    ns, block_k = split_layout(S, n_splits)
-    acc = torch.empty(B, KH, ns, H // KH, D, dtype=torch.float32,
-                      device=q.device)
-    m = torch.empty(B, KH, ns, H // KH, dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
+    ns, split_len = plan
+    if ns > 1:
+        # one scratch buffer: acc [B, KH, ns, G, D], then m and l
+        # [B, KH, ns, G]
+        rows = B * H * ns
+        scratch = torch.empty(rows * (D + 2), dtype=torch.float32,
+                              device=q.device)
+        base = scratch.data_ptr()
+        ptrs = (base, base + rows * D * 4, base + rows * (D + 1) * 4)
+    else:
+        ptrs = (None, None, None)
     lib = _lib()
     err = lib.repro_decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(),
-        B, H, KH, D, S, ns, block_k, k.stride(0), k.stride(1), k.stride(2),
-        checks.DTYPE_CODE[q.dtype],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), *ptrs,
+        out.data_ptr(), B, H, KH, D, S, ns, split_len, k.stride(0),
+        k.stride(1), k.stride(2), checks.DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "decode_attention launch")
     decode_attention.launches += 1
@@ -153,14 +217,15 @@ def decode_attention(q, k, v, lens, *, n_splits: int = 8):
 decode_attention.launches = 0
 
 
-def occupancy(dtype: torch.dtype, G: int, D: int) -> Tuple[int, int, int]:
-    """(resident blocks per SM, registers per thread, shared bytes) of
-    the partial kernel instantiated for (dtype, G, D) on the current
-    card."""
+def occupancy(dtype: torch.dtype, G: int, D: int) -> Tuple[int, int, int, int]:
+    """(resident blocks per SM, registers per thread, shared bytes, tile
+    tokens) of the split kernel instantiated for (dtype, G, D) on the
+    current card."""
     lib = _lib()
-    blocks, regs, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    blocks, regs, smem, tile = (ctypes.c_int(), ctypes.c_int(),
+                                ctypes.c_int(), ctypes.c_int())
     err = lib.repro_decode_occupancy(
         checks.DTYPE_CODE[dtype], G, D, ctypes.byref(blocks),
-        ctypes.byref(regs), ctypes.byref(smem))
+        ctypes.byref(regs), ctypes.byref(smem), ctypes.byref(tile))
     build.check(lib, err, "decode_attention occupancy")
-    return blocks.value, regs.value, smem.value
+    return blocks.value, regs.value, smem.value, tile.value

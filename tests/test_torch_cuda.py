@@ -11,11 +11,14 @@ tests/conftest.py, which imports JAX, is skipped):
 Tolerances: float32 atol 3e-5 / rtol 1e-4 (summation order only).
 bfloat16: kernel and plain version round nearly the same f32 result once
 to bf16, so an element may differ by one bf16 ulp (at most 2^-7 |x|) plus
-their f32 difference (flash rounds P to bf16 before P V, the plain version
-does not), which is held to 2^-6 of the rms of the element's output row
-(its last dimension). A tile of keys lost, stale or read twice moves a row
-by a large share of its rms and fails.
+their f32 difference (flash and the prefix half of shared-prefix decode
+round P to bf16 before P V, the plain versions do not), which is held to
+2^-6 of the rms of the element's output row (its last dimension). A tile
+of keys lost, stale or read twice moves a row by a large share of its rms
+and fails. prefix_partial's raw (acc, m, l): see _assert_partial_close.
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -32,6 +35,11 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.prefix_attention import (
     prefix_attention, prefix_attention_plain, prefix_partial,
     prefix_partial_plain)
+
+# the kernel modules (the package's names of the same spelling are the
+# functions)
+DA = importlib.import_module("repro_torch.kernels.decode_attention")
+PF = importlib.import_module("repro_torch.kernels.prefix_attention")
 
 torch.set_num_threads(1)
 
@@ -216,6 +224,144 @@ def test_decode_kernel_matches_plain(card, case, dtype):
     _assert_close(got, exp, dtype)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tiles", [7, 9])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("G", GROUPS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_splits_wrap_the_ring(card, dtype, G, D, n_tiles):
+    """400 (lane, head) pairs: rows of 7 tiles plan one split a row (the
+    block normalises and writes q's dtype), 9 tiles two splits of 5 (f32
+    partials and the merge); either holds more tiles than the 3-stage
+    cp.async ring. Lanes of length S, 1 and 0 (0 returns 0 in both
+    versions, as the Pallas kernel's guard does)."""
+    rng = np.random.default_rng(G * 1000 + D + n_tiles)
+    B, KH = 50, 8
+    S = n_tiles * DA.tile_tokens(dtype, D)
+    q = _card(rng, dtype, B, G * KH, D)
+    k, v = _card(rng, dtype, B, KH, S, D), _card(rng, dtype, B, KH, S, D)
+    lens = rng.integers(1, S + 1, B)
+    lens[:3] = [S, 1, 0]
+    lens = torch.from_numpy(lens.astype(np.int32)).cuda()
+    ns, split_len = DA.plan_for(q, k)
+    assert ns == (1 if n_tiles == 7 else 2)
+    assert split_len > 3 * DA.tile_tokens(dtype, D)
+    got = decode_attention(q, k, v, lens)
+    _assert_close(got, decode_attention_plain(q, k, v, lens), dtype)
+    assert not got[2].any()
+    assert DA.occupancy(dtype, G, D)[3] == DA.tile_tokens(dtype, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_splits", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_ignores_the_pallas_split_count(card, dtype, n_splits):
+    """The plain version splits as the Pallas kernel does; the card's
+    kernel uses its own plan, and the merged output agrees whatever the
+    keyword. Full-width smollm-360m heads, lanes of length 1 and S."""
+    rng = np.random.default_rng(n_splits)
+    B, H, KH, S, D = 8, 15, 5, 2048, 64
+    q = _card(rng, dtype, B, H, D)
+    k, v = _card(rng, dtype, B, KH, S, D), _card(rng, dtype, B, KH, S, D)
+    lens = _lens(rng, B, S)
+    lens[1] = 1
+    ns, _ = DA.plan_for(q, k)
+    assert ns > 1
+    _assert_close(decode_attention(q, k, v, lens, n_splits=n_splits),
+                  decode_attention_plain(q, k, v, lens, n_splits=n_splits),
+                  dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_reads_the_model_layout(card, dtype):
+    """ops.decode_attention hands the kernel transposed views of
+    [B, S, KH, D] caches: mistral-7b's heads, splits that wrap the ring."""
+    rng = np.random.default_rng(11)
+    B, H, KH, S, D = 4, 32, 8, 1100, 128
+    q = _card(rng, dtype, B, H, D)
+    kc, vc = _card(rng, dtype, B, S, KH, D), _card(rng, dtype, B, S, KH, D)
+    lens = _lens(rng, B, S)
+    lens[1] = 1
+    ns, split_len = DA.plan_for(q, kc.transpose(1, 2))
+    assert split_len > 3 * DA.tile_tokens(dtype, D)
+    _assert_close(ops.decode_attention(q, kc, vc, lens),
+                  decode_attention_plain(q, kc.transpose(1, 2),
+                                         vc.transpose(1, 2), lens), dtype)
+
+
+def _assert_partial_close(got, q, kp, vp):
+    """prefix_partial's raw (acc, m, l) against the plain version's. m and
+    l are f32 on both sides from the same scores (summation order only).
+    acc: the bf16 kernel rounds each probability p to bf16 before P V, as
+    the Pallas kernel does, an error of at most 2^-8 p, so |acc - plain|
+    <= 2^-8 sum_k p_k |v_k|; held to 2^-7 of that sum (the f32 sums' own
+    rounding on top), plus the f32 tolerance. A lost or doubled key tile
+    moves l far past its tolerance."""
+    acc_p, m_p, l_p = prefix_partial_plain(q, kp, vp)
+    for g, e in zip(got[1:], (m_p, l_p)):
+        torch.testing.assert_close(g, e, atol=1e-3, rtol=1e-4)
+    tol = 1e-3 + 1e-4 * acc_p.abs()
+    if q.dtype == torch.bfloat16:
+        tol = tol + 2 ** -7 * prefix_partial_plain(q, kp, vp.abs())[0]
+    err = (got[0] - acc_p).abs()
+    assert torch.isfinite(got[0]).all()
+    assert (err <= tol).all(), f"{(err / tol).max().item():.3g}x the bound"
+
+
+# (B, G, D): B * G folded rows 1, 64, 128 and 129 (two row tiles), at
+# every head width
+PREFIX_ROWS = [(1, 1), (16, 4), (32, 4), (43, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("rows", PREFIX_ROWS)
+def test_prefix_bf16_folded_rows(card, rows, D):
+    """The wgmma prefix half at 1, 64, 128 and 129 folded rows, a prefix
+    of 1100 keys (not a multiple of the 64-key tile, more tiles than the
+    4-stage ring), then the suffix and the merge."""
+    B, G = rows
+    rng = np.random.default_rng(B * G + D)
+    KH, Sp, Ss, bf = 2, 1100, 40, torch.bfloat16
+    q = _card(rng, bf, B, G * KH, D)
+    kp, vp = _card(rng, bf, KH, Sp, D), _card(rng, bf, KH, Sp, D)
+    ks, vs = _card(rng, bf, B, KH, Ss, D), _card(rng, bf, B, KH, Ss, D)
+    lens = _lens(rng, B, Ss)
+    assert PF.plan_for(q, kp, ks, 64)[0][0] > 1
+    for block_k in (64, 4096):           # many splits, then one
+        _assert_close(prefix_attention(q, kp, vp, ks, vs, lens,
+                                       block_k=block_k),
+                      prefix_attention_plain(q, kp, vp, ks, vs, lens), bf)
+        _assert_partial_close(prefix_partial(q, kp, vp, block_k=block_k),
+                              q, kp, vp)
+
+
+# (Sp, block_k): prefixes one key short of, at and one past a tile or a
+# split's end, and one split for the whole prefix
+PREFIX_EDGES = [(63, 64), (64, 64), (65, 64), (255, 128), (257, 128),
+                (1000, 256), (1024, 256), (1025, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", PREFIX_EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefix_kernel_chunk_edges(card, dtype, edge):
+    Sp, block_k = edge
+    rng = np.random.default_rng(Sp)
+    B, H, KH, Ss, D = 6, 12, 3, 33, 64
+    q = _card(rng, dtype, B, H, D)
+    kp, vp = _card(rng, dtype, KH, Sp, D), _card(rng, dtype, KH, Sp, D)
+    ks, vs = _card(rng, dtype, B, KH, Ss, D), _card(rng, dtype, B, KH, Ss, D)
+    lens = _lens(rng, B, Ss)
+    (n_pre, chunk), _ = PF.plan_for(q, kp, ks, block_k)
+    assert (n_pre - 1) * chunk < Sp <= n_pre * chunk and chunk % 64 == 0
+    _assert_close(prefix_attention(q, kp, vp, ks, vs, lens, block_k=block_k),
+                  prefix_attention_plain(q, kp, vp, ks, vs, lens), dtype)
+    _assert_partial_close(prefix_partial(q, kp, vp, block_k=block_k), q, kp,
+                          vp)
+
+
 # (B, H, KH, Sp, Ss, D): the JAX package's cases, then full-width
 # smollm-360m and mistral-7b at B 32, prefix 4096, suffixes <= 256
 PRE_CARD = PRE_CASES + [(32, 15, 5, 4096, 256, 64),
@@ -238,13 +384,10 @@ def test_prefix_kernel_matches_plain(card, case, dtype):
     assert prefix_partial.launches == n0 + 1
     exp = prefix_attention_plain(q, kp, vp, ks, vs, lens)
     _assert_close(got, exp, dtype)
-    # the raw partial of the prefix alone, f32 in both versions: acc and l
-    # are unnormalised sums over up to Sp keys, so the summation-order
-    # tolerance is relative, with an absolute floor for acc entries near 0
+    # the raw partial of the prefix alone (_assert_partial_close)
     parts = prefix_partial(q, kp, vp)
     assert prefix_partial.launches == n0 + 2
-    for g, e in zip(parts, prefix_partial_plain(q, kp, vp)):
-        torch.testing.assert_close(g, e, atol=1e-3, rtol=1e-4)
+    _assert_partial_close(parts, q, kp, vp)
 
 
 # (B, H, KH, Sq, Skv, D, causal, window): the JAX package's cases, then

@@ -32,17 +32,21 @@ from repro_torch.kernels import build
 # the module (the package's name ``flash_attention`` is the function)
 FA = importlib.import_module("repro_torch.kernels.flash_attention")
 
-# (name, original text, replacement) of each switch
+# (source file under csrc/, original text, replacement) of each switch
 _SWITCHES = {
-    "tma": ("    bar_expect(full + s, 2 * C::tile_bytes);\n#pragma unroll\n"
+    "tma": ("flash_attention.cu",
+            "    bar_expect(full + s, 2 * C::tile_bytes);\n#pragma unroll\n"
             "    for (int c = 0; c < D / C::CB; ++c) {",
             "    bar_arrive(full + s);\n    for (int c = 0; c < 0; ++c) {"),
-    "products": ("    for (int kk = 0; kk < D / 16; ++kk)\n"
+    "products": ("flash_attention.cu",
+                 "    for (int kk = 0; kk < D / 16; ++kk)\n"
                  "      wgmma_ss_n64(",
                  "    for (int kk = 0; kk < 0; ++kk)\n      wgmma_ss_n64("),
-    "pv": ("  for (int u = 0; u < kBK / 16; ++u)\n    wgmma_pv<D>(",
+    "pv": ("wgmma.cuh",
+           "  for (int u = 0; u < kBK / 16; ++u)\n    wgmma_pv<D>(",
            "  for (int u = 0; u < 0; ++u)\n    wgmma_pv<D>("),
-    "softmax": ("    for (int h2 = 0; h2 < 2; ++h2) {\n      const int qpos",
+    "softmax": ("flash_attention.cu",
+                "    for (int h2 = 0; h2 < 2; ++h2) {\n      const int qpos",
                 "    for (int h2 = 0; h2 < 0; ++h2) {\n      const int qpos"),
 }
 VARIANTS = {
@@ -56,31 +60,42 @@ VARIANTS = {
 }
 
 
-def _source(switches) -> str:
-    src = (build.CSRC / "flash_attention.cu").read_text()
+def _sources(main: str, table: dict, switches) -> dict:
+    """The edited files of a variant of csrc/``main``: file name -> text,
+    after the edits ``table[name]`` = (file, old, new) of each switch."""
+    files = {main: (build.CSRC / main).read_text()}
     for name in switches:
-        old, new = _SWITCHES[name]
+        fname, old, new = table[name]
+        src = files.get(fname) or (build.CSRC / fname).read_text()
         if src.count(old) != 1:
             raise RuntimeError(f"ablate: switch {name!r} no longer applies "
-                               "to csrc/flash_attention.cu")
-        src = src.replace(old, new)
-    return src
+                               f"to csrc/{fname}")
+        files[fname] = src.replace(old, new)
+    return files
 
 
-def _build_all() -> dict:
-    """One nvcc per variant, all started together."""
+def build_variants(main: str, table: dict, variants: dict) -> dict:
+    """Build a library of csrc/``main`` for each variant (name -> the
+    switches of ``table`` it turns on): one nvcc per variant, all started
+    together. A variant's edited files go to a directory of its own,
+    found before csrc/ for every include, so an edited header reaches
+    only that variant. Returns name -> library path."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = build._nvcc()
+    stem = main.rsplit(".", 1)[0]
     procs = {}
-    for name, switches in VARIANTS.items():
-        src = _source(switches)
-        tag = hashlib.sha256(src.encode()).hexdigest()[:12]
-        cu = build.BUILD_DIR / f"ablate-{tag}.cu"
-        so = cu.with_suffix(".so")
-        tmp = cu.with_suffix(f".{os.getpid()}.so")
-        cu.write_text(src)
+    for name, switches in variants.items():
+        files = _sources(main, table, switches)
+        tag = hashlib.sha256(repr(sorted(files.items())).encode()) \
+            .hexdigest()[:12]
+        vdir = build.BUILD_DIR / f"ablate-{tag}"
+        vdir.mkdir(exist_ok=True)
+        for fname, text in files.items():
+            (vdir / fname).write_text(text)
+        so = vdir / f"{stem}.so"
+        tmp = vdir / f"{stem}.{os.getpid()}.so"
         cmd = [nvcc, *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(tmp),
-               str(cu)]
+               str(vdir / main)]
         procs[name] = (so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -93,7 +108,9 @@ def _build_all() -> dict:
     return libs
 
 
-def _time_ms(fn, n=20):
+def time_ms(fn, n=20):
+    """Mean device time of fn: CUDA events around each call, a ~1 ms spin
+    kernel queued ahead of it (no L2 flush)."""
     for _ in range(3):
         fn()
     total = 0.0
@@ -112,7 +129,7 @@ def _time_ms(fn, n=20):
 def run() -> list:
     if not torch.cuda.is_available():
         raise RuntimeError("ablate: needs an NVIDIA GPU")
-    libs = _build_all()
+    libs = build_variants("flash_attention.cu", _SWITCHES, VARIANTS)
     g = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = (torch.randn(1, h, 2048, 64, generator=g, device="cuda")
                .bfloat16() for h in (15, 5, 5))
@@ -124,7 +141,7 @@ def run() -> list:
             FA._lib = lambda lib=lib: FA._declare(lib)
             row = {"variant": name}
             for causal in (True, False):
-                row["causal_ms" if causal else "full_ms"] = _time_ms(
+                row["causal_ms" if causal else "full_ms"] = time_ms(
                     lambda: FA.flash_attention(q, k, v, causal=causal))
             rows.append(row)
             print(json.dumps(row), flush=True)
