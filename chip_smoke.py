@@ -29,9 +29,24 @@ From the root of a checkout. It
    random weights from the seed) on two engine instances, and checks
    that every request finished with prefix reuse, on the card, through
    the kernel (its launch count = layers x model dispatches);
-5. checks the served outputs against the same engine on the CPU on a
+5. drives the host KV tier at full smollm-360m width: two instances under
+   E2 whose device pools hold about a quarter of a thrashing 6-prefix
+   working set (videoqa/loogle-style interleaved rounds), with host
+   tiers and prefetch; checks that KV was demoted, restored and
+   prefetched, that the cluster's invariants hold, that the same stream
+   without the tier prefills strictly more, and the kernel's launch
+   count; prints the copy rates of each direction (CUDA events on the
+   stream that ran the copy), the host wall blocked in drains and both
+   overlap fractions;
+6. drives draft-model speculative decoding at full width: a 32-layer
+   target whose layers 4-31 are identities on the residual, and its
+   first 4 layers as the draft (K 4), on 8 toolbench requests; checks
+   one target dispatch per iteration, draft dispatches, no leaked draft
+   table and the kernel's launch count (target and draft); prints the
+   acceptance and tokens/s with speculation on and off;
+7. checks the served outputs against the same engine on the CPU on a
    small float32 config (token-identical);
-6. profiles a second, smaller full-width serve with torch.profiler:
+8. profiles a second, smaller full-width serve with torch.profiler:
    device busy share, launches per step, the costliest kernels, and the
    paged decode kernel's launches and share of device time.
 
@@ -255,23 +270,42 @@ def kernel_phase(torch, PA):
                                  lens, seed=10 + j), F32)
         print(f"kernel: PAGED_EDGE_LENS[{j}] lens={lens} max_err={e:.3e}")
 
-    # main-path shapes: full smollm-360m decode half, bf16 pool; 128-page
-    # rows (context 2048) at B 1, 8, 32, and the serve phase's own shape
-    # (8 decode lanes, 64-page rows, prompts of 341 + up to 8 tokens)
+    # main-path shapes: full smollm-360m decode half, bf16 pool. 128-page
+    # rows (context 2048) at B 1, 8, 32; the serve phase's shape (8 decode
+    # lanes, 64-page rows, prompts of 341 + up to 8 tokens); the host-tier
+    # phase's (1 lane, 64-page rows, 768 + 32 + 4 tokens); the speculative
+    # phase's target buckets (2 and 4 lanes, 341 + 32 tokens) and its
+    # draft's decode steps (8 lanes, the last 3 masked) and the dummy
+    # decode lane of each propose (masked). A masked lane is what the
+    # draft makes of a lane whose budget is spent: an all-zero page-table
+    # row and pos 0, so it reads (len 1) and writes the scratch page's
+    # slot 0; the draft's live rows hold only their own pages, zeros past
+    # them, as the engine builds them.
     H, KH, D, PS = 15, 5, 64, 16
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     rows = []
-    for B, P, max_len in ((1, 128, 2048), (8, 128, 2048), (32, 128, 2048),
-                          (8, 64, 349)):
+    for B, P, max_len, masked in ((1, 128, 2048, 0), (8, 128, 2048, 0),
+                                  (32, 128, 2048, 0), (8, 64, 349, 0),
+                                  (1, 64, 804, 0), (2, 64, 373, 0),
+                                  (4, 64, 373, 0), (8, 64, 376, 3),
+                                  (1, 64, 1, 1)):
         rng = torch.Generator().manual_seed(B * P)
         lens = torch.randint(1, max_len + 1, (B,), generator=rng)
         lens[0] = max_len
         if B > 2:
             lens[1] = 16 * (max_len // 64)       # page-exact boundary
+        if masked:
+            lens[B - masked:] = 1
         lens = lens.tolist()
         inp = paged_inputs(torch, B, H, KH, PS, P, D, torch.bfloat16, lens,
                            seed=1000 + B)
-        err = compare(torch, PA, f"paged main path B{B}", inp, BF16)
+        if masked:
+            pt = inp[3]
+            for b, n in enumerate(lens):
+                pt[b, 0 if b >= B - masked else -(-n // PS):] = 0
+        name = f"paged main path B{B} P{P} len<={max_len}" + (
+            f" ({masked} masked)" if masked else "")
+        err = compare(torch, PA, name, inp, BF16)
         q, k, v, pt, ln = inp
         n_splits, pps = PA.plan_for(q, k, pt)
         S = P * PS
@@ -294,7 +328,7 @@ def kernel_phase(torch, PA):
         lib_out = library()[:, :, 0]
         check(bool(((lib_out.float() - PA.paged_decode_attention_plain(
             *inp).float()).abs() <= 2e-2).all()),
-            f"main path B{B}: library yardstick disagrees")
+            f"{name}: library yardstick disagrees")
         kernel_ms = time_ms(torch, lambda: PA.paged_decode_attention(*inp),
                             flush)
         plain_ms = time_ms(torch,
@@ -307,7 +341,7 @@ def kernel_phase(torch, PA):
                  + sum(math.ceil(n / PS) for n in lens) * 4)
         bytes_ms = (kv_bytes + other) / HBM_BYTES_PER_S * 1e3
         ops_ms = 4 * ntok * H * D / BF16_FLOPS * 1e3
-        row = dict(B=B, P=P, lens_max=max(lens), tokens=ntok,
+        row = dict(B=B, P=P, masked=masked, lens_max=max(lens), tokens=ntok,
                    max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
@@ -702,6 +736,253 @@ def serve_phase(torch, PA, serve):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the host KV tier and speculative decoding at full width
+# ---------------------------------------------------------------------------
+
+# videoqa/loogle-style thrash (benchmarks/bench_offload.py), engine-sized:
+# 6 shared 768-token prefixes, each with a unique 32-token tail and 4 new
+# tokens, in 3 interleaved rounds (each round's 6 requests arrive at once).
+# Each instance's pool holds 1664 tokens, ~35 % of the 4800-token working
+# set: one request in flight (804 tokens) plus one 768-token prefetched
+# chain, but not the 3 prefixes E2 gives it, so every re-hit finds its
+# prefix demoted. One request in flight per instance, so the rest of a
+# round waits with room in the pool: the head of the queue is prefetched
+# while the instance serves another, the first of a round restores at
+# admission. (At 1280 tokens a waiting request never has the 768 free
+# tokens a prefetch needs.) The host tier holds 5120 tokens.
+TIER = dict(n_prefixes=6, prefix_len=768, tail_len=32, out=4, rounds=3,
+            round_gap=1.0)
+TIER_ECONF = dict(max_context=1024, chunk_size=64, max_batch_tokens=256,
+                  max_batch_requests=1, capacity_tokens=1664, page_size=16)
+TIER_HOST = dict(host_capacity_tokens=5120, prefetch_budget_tokens=1024)
+
+
+def tier_requests(torch, Request, vocab, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    t = TIER
+    prefixes = [tuple(torch.randint(1, vocab, (t["prefix_len"],),
+                                    generator=g).tolist())
+                for _ in range(t["n_prefixes"])]
+    reqs = []
+    for i in range(t["rounds"]):
+        for pref in prefixes:
+            tail = torch.randint(1, vocab, (t["tail_len"],), generator=g)
+            reqs.append(Request(tokens=pref + tuple(tail.tolist()),
+                                max_new_tokens=t["out"],
+                                arrival_time=i * t["round_gap"]))
+    return reqs
+
+
+def drive(torch, PA, cl, reqs):
+    """cl.run on the card with the paged kernel's count at 0; returns
+    (wall seconds after the device finished, kernel launches)."""
+    torch.cuda.synchronize()
+    PA.paged_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    cl.run(reqs, dt=0.01)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, PA.paged_decode_attention.launches
+
+
+def check_outputs(name, reqs, vocab):
+    check(all(r.state.value == "finished" for r in reqs),
+          f"{name}: {sum(r.state.value == 'finished' for r in reqs)}/"
+          f"{len(reqs)} finished")
+    for r in reqs:
+        check(len(r.output_tokens) == r.max_new_tokens
+              and all(0 <= t < vocab for t in r.output_tokens),
+              f"{name}: request {r.request_id}: bad outputs "
+              f"{r.output_tokens}")
+
+
+def link_rates(torch, cfg, reps=5):
+    """The host link alone, beside the phase's copies: one pinned copy
+    of a span of the full-width pool (every leaf: n_layers x K and V,
+    [tokens, KH, D] bf16) each way on an otherwise idle card, CUDA events
+    around it; GB/s, mean of ``reps``, for a 768-token span (what the
+    phase moves) and a 1024-token one."""
+    out = {}
+    for n in (768, 1024):
+        shape = (2 * cfg.n_layers, n, cfg.n_kv_heads, cfg.head_dim)
+        host = torch.zeros(shape, dtype=torch.bfloat16, pin_memory=True)
+        dev = torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+        for name, dst, src in (("h2d", dev, host), ("d2h", host, dev)):
+            dst.copy_(src, non_blocking=True)          # warm
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            for _ in range(reps):
+                dst.copy_(src, non_blocking=True)
+            ev[1].record()
+            ev[1].synchronize()
+            ms = ev[0].elapsed_time(ev[1]) / reps
+            out[f"{name}_{n}_gb_s"] = host.nbytes / ms / 1e6
+    return out
+
+
+def host_tier_phase(torch, PA, cfg, params, ClusterRuntime, EngineConfig,
+                    Request):
+    out = {}
+    for tier in (True, False):
+        econf = EngineConfig(**TIER_ECONF, **(TIER_HOST if tier else {}))
+        cl = ClusterRuntime(cfg, params, num_instances=2, engine_cfg=econf,
+                            device="cuda")
+        reqs = tier_requests(torch, Request, cfg.vocab_size)
+        logs = [e.attach_copy_log() for e in cl.engines.values()]
+        wall, launches = drive(torch, PA, cl, reqs)
+        check_outputs("host tier" if tier else "no tier", reqs,
+                      cfg.vocab_size)
+        cl.check_invariants()
+        engines = list(cl.engines.values())
+        st = {k: sum(e.stats[k] for e in engines)
+              for k in ("prefilled_tokens", "reused_tokens",
+                        "model_dispatches", "iterations", "demoted_tokens",
+                        "restored_tokens", "restore_dispatches",
+                        "prefetch_issued", "prefetch_hit",
+                        "demote_batches", "demote_batches_overlapped",
+                        "prefetch_batches", "prefetch_batches_overlapped")}
+        check(launches == cfg.n_layers * st["model_dispatches"],
+              f"host tier: kernel launches {launches} != {cfg.n_layers} x "
+              f"{st['model_dispatches']} model dispatches")
+        if not tier:
+            out["no_tier"] = dict(wall_s=wall, steps=st["iterations"],
+                                  prefilled_tokens=st["prefilled_tokens"],
+                                  reused_tokens=st["reused_tokens"])
+            continue
+        for k in ("demoted_tokens", "restored_tokens", "restore_dispatches",
+                  "prefetch_issued"):
+            check(st[k] > 0, f"host tier: {k} is 0")
+        copies = [log.fold(block=True) for log in logs]
+        c = {k: sum(x[k] for x in copies) for k in copies[0]}
+        out.update(
+            wall_s=wall, steps=st["iterations"], kernel_launches=launches,
+            demoted_tokens=st["demoted_tokens"],
+            restored_tokens=st["restored_tokens"],
+            prefetched_tokens=st["prefetch_issued"],
+            prefetch_hit_tokens=st["prefetch_hit"],
+            prefilled_tokens=st["prefilled_tokens"],
+            reused_tokens=st["reused_tokens"],
+            migrated_tokens=cl.stats["migrated_tokens"],
+            d2h_bytes=c["d2h_bytes"], d2h_copies=c["d2h_copies"],
+            d2h_ms=c["d2h_ms"],
+            d2h_gb_s=c["d2h_bytes"] / c["d2h_ms"] / 1e6,
+            h2d_bytes=c["h2d_bytes"], h2d_copies=c["h2d_copies"],
+            h2d_ms=c["h2d_ms"],
+            h2d_gb_s=c["h2d_bytes"] / c["h2d_ms"] / 1e6,
+            drain_blocked_s=c["drain_blocked_s"],
+            drain_blocked_share=c["drain_blocked_s"] / wall,
+            demote_overlap_frac=(st["demote_batches_overlapped"]
+                                 / max(st["demote_batches"], 1)),
+            prefetch_overlap_frac=(st["prefetch_batches_overlapped"]
+                                   / max(st["prefetch_batches"], 1)))
+    out["link"] = link_rates(torch, cfg)
+    check(out["no_tier"]["prefilled_tokens"] > out["prefilled_tokens"],
+          f"host tier: prefilled {out['prefilled_tokens']} tokens, not "
+          f"fewer than {out['no_tier']['prefilled_tokens']} without it")
+    print("host_tier: " + json.dumps(out))
+
+
+SPEC_K, DRAFT_LAYERS = 4, 4
+SPEC_ECONF = dict(max_context=1024, chunk_size=64, max_batch_tokens=256,
+                  capacity_tokens=8192, page_size=16)
+
+
+def spec_pair(torch, cfg, params):
+    """benchmarks/bench_spec.py's calibrated pair at full width: the
+    target's attention wo and FFN wd are zero in layers DRAFT_LAYERS..,
+    so those layers are identities on the residual; the draft is the
+    same config at DRAFT_LAYERS layers with the target's first layers."""
+    import dataclasses
+    check(set(params["stack"]) == {"p0"}, "expected a uniform layer plan")
+    p0 = params["stack"]["p0"]
+    wo, wd = p0["attn"]["wo"].clone(), p0["ffn"]["wd"].clone()
+    wo[DRAFT_LAYERS:] = 0
+    wd[DRAFT_LAYERS:] = 0
+    tp0 = {**p0, "attn": {**p0["attn"], "wo": wo},
+           "ffn": {**p0["ffn"], "wd": wd}}
+
+    def head(tree):
+        if isinstance(tree, dict):
+            return {k: head(v) for k, v in tree.items()}
+        return tree[:DRAFT_LAYERS]
+
+    target = {"embed": params["embed"], "stack": {"p0": tp0}}
+    draft = {"embed": params["embed"], "stack": {"p0": head(tp0)}}
+    return target, dataclasses.replace(cfg, n_layers=DRAFT_LAYERS), draft
+
+
+def spec_requests(Request, gen_workload, vocab):
+    """8 toolbench prompts cut to a third of the context (as the serve
+    CLI scales them), 32 new tokens each, all arriving at once."""
+    n = SPEC_ECONF["max_context"] // 3
+    return [Request(tokens=tuple(t % vocab for t in r.tokens[:n]),
+                    max_new_tokens=32, workload=r.workload)
+            for r in gen_workload("toolbench", 8, seed=0)]
+
+
+def spec_phase(torch, PA, cfg, params, ClusterRuntime, EngineConfig,
+               Request, SpeculativeConfig, gen_workload):
+    target, dcfg, dparams = spec_pair(torch, cfg, params)
+    out = {}
+    for on in (False, True):
+        spec = (SpeculativeConfig(draft_cfg=dcfg, k=SPEC_K,
+                                  draft_params=dparams) if on else None)
+        cl = ClusterRuntime(cfg, target, num_instances=1, device="cuda",
+                            engine_cfg=EngineConfig(**SPEC_ECONF,
+                                                    speculative=spec))
+        reqs = spec_requests(Request, gen_workload, cfg.vocab_size)
+        eng = cl.engines[0]
+        draft_s = [0.0]
+        if on:
+            # host wall of the draft's propose calls (each ends in a
+            # device sync): the draft's share of the run
+            propose = eng.draft.propose
+
+            def timed(lanes):
+                t0 = time.perf_counter()
+                out = propose(lanes)
+                draft_s[0] += time.perf_counter() - t0
+                return out
+            eng.draft.propose = timed
+        wall, launches = drive(torch, PA, cl, reqs)
+        name = "spec on" if on else "spec off"
+        check_outputs(name, reqs, cfg.vocab_size)
+        cl.check_invariants()
+        st = eng.stats
+        check(st["model_dispatches"] == st["iterations"],
+              f"{name}: {st['model_dispatches']} target dispatches in "
+              f"{st['iterations']} iterations")
+        n_tok = sum(len(r.output_tokens) for r in reqs)
+        row = dict(wall_s=wall, iterations=st["iterations"],
+                   wall_per_iteration_ms=1e3 * wall / st["iterations"],
+                   output_tokens=n_tok, tokens_per_s=n_tok / wall,
+                   kernel_launches=launches)
+        want = cfg.n_layers * st["model_dispatches"]
+        if on:
+            d = eng.draft
+            check(st["spec_draft_dispatches"] > 0, "no draft dispatch")
+            check(not d.pool.tables, f"leaked draft tables "
+                  f"{list(d.pool.tables)}")
+            d.pool.check_invariants()
+            want += dcfg.n_layers * (d.dispatches + d.decode_steps)
+            row.update(acceptance=st["spec_acceptance_frac"],
+                       draft_propose_s=draft_s[0],
+                       proposed_tokens=st["spec_proposed_tokens"],
+                       accepted_tokens=st["spec_accepted_tokens"],
+                       verify_lanes=st["spec_verify_lanes"],
+                       draft_dispatches=d.dispatches,
+                       draft_decode_steps=d.decode_steps,
+                       degraded=st["spec_degraded"])
+        check(launches == want,
+              f"{name}: kernel launches {launches} != {want} (target "
+              f"{cfg.n_layers} x dispatches + draft layers x forwards)")
+        out["on" if on else "off"] = row
+    out["speedup_tokens_per_s"] = (out["on"]["tokens_per_s"]
+                                   / out["off"]["tokens_per_s"])
+    print("speculative: " + json.dumps(out))
+
+
 def profile_phase(torch, PA, serve):
     """Where the time goes: a second, smaller full-width serve (4
     requests) with torch.profiler (device activity only, to keep the
@@ -815,8 +1096,12 @@ def main() -> None:
     DA, PF, FA = (importlib.import_module(f"repro_torch.kernels.{m}")
                   for m in ("decode_attention", "prefix_attention",
                             "flash_attention"))
+    from repro_torch.data import gen_workload
     from repro_torch.launch import serve
+    from repro_torch.models import zoo
+    from repro_torch.serving.cluster import ClusterRuntime
     from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.speculative import SpeculativeConfig
 
     full_precision_matmuls()
     card = card_line()
@@ -838,6 +1123,17 @@ def main() -> None:
           f"(bound 2^-7 |plain| + 2^-6 rms of the plain row): "
           + ", ".join(f"{k} {u:.4f}" for k, u in BOUND_USE.items()))
     launches = serve_phase(torch, PA, serve)
+    cfg = configs.get_config("smollm-360m")
+    params = zoo.build(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0), "cuda")
+    for name, phase, extra in (
+            ("host tier", host_tier_phase, ()),
+            ("speculative", spec_phase, (SpeculativeConfig, gen_workload))):
+        t0 = time.perf_counter()
+        phase(torch, PA, cfg, params, ClusterRuntime, EngineConfig,
+              Request, *extra)
+        print(f"{name}: phase took {time.perf_counter() - t0:.1f}s")
+    del params
     reference_phase(torch, configs, bridge, Engine, EngineConfig, Request)
     profile_phase(torch, PA, serve)
 

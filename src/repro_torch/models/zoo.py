@@ -10,8 +10,10 @@ Batch dicts hold int32 tensors on the model's device:
                  "chunk_len": [Lc], "chunk_page_table": [Lc, P],
                  "dec_tokens": [Ld], "dec_pos": [Ld],
                  "dec_page_table": [Ld, P]}
+  mixed_paged_spec: the mixed_paged batch.
 Each returns (nxt, pages): greedy next tokens (int32) and the pool,
-which it updated in place.
+which it updated in place; mixed_paged_spec returns (nxt, chunk_pred,
+pages), chunk_pred [Lc, C] the greedy token after every chunk position.
 """
 
 from __future__ import annotations
@@ -78,8 +80,23 @@ class ModelAPI:
         return self._final(params, h), pages
 
     def mixed_paged_spec(self, params, pages, batch: Dict):
-        raise NotImplementedError("speculative verification is not ported "
-                                  "yet")
+        """``mixed_paged`` plus the verification head: chunk_pred
+        [Lc, C], the greedy prediction after EVERY chunk position, with
+        the same norm and head as the lane predictions (so
+        chunk_pred[i, last_i] == nxt[i]). Returns (nxt, chunk_pred,
+        pages)."""
+        cfg = self.cfg
+        xc = L.embed_tokens(params["embed"], cfg, batch["chunk_tokens"])
+        xd = L.embed_tokens(params["embed"], cfg, batch["dec_tokens"])
+        hc, hd, pages = T.forward_mixed_paged(
+            params["stack"], cfg, xc, xd, pages,
+            batch["chunk_page_table"], batch["chunk_start"],
+            batch["chunk_len"], batch["dec_page_table"], batch["dec_pos"])
+        last = torch.clamp(batch["chunk_len"] - 1, min=0).long()
+        rows = torch.arange(hc.shape[0], device=hc.device)
+        nxt = self._final(params, torch.cat([hc[rows, last], hd], dim=0))
+        chunk_pred = self._final(params, hc)
+        return nxt, chunk_pred, pages
 
 
 def build(cfg: ModelConfig) -> ModelAPI:

@@ -17,7 +17,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["ModelWorkerBatch", "ForwardBatch"]
+__all__ = ["ModelWorkerBatch", "ForwardBatch", "bucket", "lower_arrays"]
 
 
 @dataclass
@@ -54,15 +54,29 @@ class ForwardBatch:
     @classmethod
     def lower(cls, wb: ModelWorkerBatch, device) -> "ForwardBatch":
         """ONE host-to-device copy for the whole worker batch."""
-        device = torch.device(device)
-        arrs = [np.ascontiguousarray(a, dtype=np.int32) for a in wb.arrays()]
-        sizes = [a.size for a in arrs]
-        host = torch.empty(sum(sizes), dtype=torch.int32,
-                           pin_memory=device.type == "cuda")
-        np.concatenate([a.reshape(-1) for a in arrs], out=host.numpy())
-        dev = host.to(device, non_blocking=True)
-        views, ofs = [], 0
-        for a, n in zip(arrs, sizes):
-            views.append(dev[ofs:ofs + n].view(a.shape))
-            ofs += n
-        return cls(*views)
+        return cls(*lower_arrays(wb.arrays(), device))
+
+
+def bucket(n: int) -> int:
+    """Next power of two >= n: model batches are padded to bucket sizes
+    (the reference's retrace bound; kept so padding matches it)."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def lower_arrays(arrays, device) -> Tuple[torch.Tensor, ...]:
+    """int32 host arrays -> int32 tensors on ``device`` in ONE
+    host-to-device copy: the arrays are packed into one (pinned, on a
+    CUDA target) host buffer, copied once, and returned as views into
+    the device copy."""
+    device = torch.device(device)
+    arrs = [np.ascontiguousarray(a, dtype=np.int32) for a in arrays]
+    sizes = [a.size for a in arrs]
+    host = torch.empty(sum(sizes), dtype=torch.int32,
+                       pin_memory=device.type == "cuda")
+    np.concatenate([a.reshape(-1) for a in arrs], out=host.numpy())
+    dev = host.to(device, non_blocking=True)
+    views, ofs = [], 0
+    for a, n in zip(arrs, sizes):
+        views.append(dev[ofs:ofs + n].view(a.shape))
+        ofs += n
+    return tuple(views)

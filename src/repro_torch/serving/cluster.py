@@ -7,15 +7,19 @@ data plane. ``check_invariants`` reconciles the layers after any amount
 of rebalancing: pool refcounts, scheduler token accounting, and the
 global scheduler's cached-token gauges.
 
-Fault tolerance: built with a ``FaultConfig`` the runtime injects
-crashes and notification loss through a shared ``FaultInjector`` and
-survives them — heartbeat-driven ALIVE→SUSPECT→DEAD detection, retry
-with budget + exponential backoff into a terminal FAILED state, delayed
-notifications, periodic anti-entropy reconciliation. With no
-FaultConfig every hook is inert.
+With host KV tiers (``EngineConfig.host_capacity_tokens``) E2 may plan
+a host-to-host migration of a demoted span (``_execute_migration``) or a
+schedule-time prefetch rider; ``drain_instance`` migrates a retiring
+instance's host tier to a survivor.
 
-Not ported yet: host KV tiers (so no tier-to-tier migration and no
-host-tier drain) and multi-chip instances (``chips_per_instance``).
+Fault tolerance: built with a ``FaultConfig`` the runtime injects
+crashes, copy failures and notification loss through a shared
+``FaultInjector`` and survives them — heartbeat-driven
+ALIVE→SUSPECT→DEAD detection, retry with budget + exponential backoff
+into a terminal FAILED state, delayed notifications, periodic
+anti-entropy reconciliation. With no FaultConfig every hook is inert.
+
+Not ported yet: multi-chip instances (``chips_per_instance``).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import itertools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..core.cost_model import CostModel, cost_model_for
+from ..core.e2 import MigrationPlan
 from ..core.global_scheduler import GlobalScheduler, GlobalSchedulerConfig
 from ..core.request import Request, RequestState
 from .engine import Engine, EngineConfig
@@ -57,6 +62,14 @@ class ClusterRuntime:
                           and telemetry.enabled else None)
         base = engine_cfg or EngineConfig()
         base_cm = cost_model or cost_model_for("smollm-360m")
+        if base.speculative is not None and base_cm.spec_k == 0:
+            # acceptance-aware decode pricing: E2's load_cost and
+            # add_work must see the expected-tokens-per-step discount of
+            # spec-on instances. A CostModel already priced for
+            # speculation (spec_k != 0) is kept.
+            sp = base.speculative
+            base_cm = base_cm.with_speculative(sp.k, sp.acceptance,
+                                               sp.draft_cost)
         gs_cfg = scheduler_cfg or GlobalSchedulerConfig(
             capacity_tokens=base.capacity_tokens,
             host_capacity_tokens=base.host_capacity_tokens)
@@ -87,8 +100,11 @@ class ClusterRuntime:
         self._now = 0.0
         self._last_reconcile = 0.0
         self._detection = self.gs.config.heartbeat_interval > 0.0
-        self.stats = {"retries": 0, "failed_terminal": 0,
-                      "failed_no_survivors": 0, "recovered_requests": 0}
+        self.stats = {"migrations": 0, "migrated_tokens": 0,
+                      "drain_migrated_tokens": 0, "retries": 0,
+                      "failed_terminal": 0, "failed_no_survivors": 0,
+                      "recovered_requests": 0,
+                      "crash_with_inflight_dma": 0}
         if self.telemetry is not None:
             tel = self.telemetry
             self.stats = tel.adopt(self.stats, "runtime")
@@ -105,6 +121,9 @@ class ClusterRuntime:
         st = self.gs.instances[inst]
         self.telemetry.gauge_fn("gs_cached_tokens",
                                 lambda s=st: s.cached_tokens,
+                                instance=inst)
+        self.telemetry.gauge_fn("gs_host_cached_tokens",
+                                lambda s=st: s.host_cached_tokens,
                                 instance=inst)
 
     def _notify_evictions(self, inst: int, spans, *, demoted=(),
@@ -143,6 +162,7 @@ class ClusterRuntime:
                                     reason="no_survivors")
                 tel.observe_request(request, now)
             return -1
+        prefetch = None
         if self.policy == "rr":
             inst = alive[self._rr_next % len(alive)]
             self._rr_next += 1
@@ -154,18 +174,61 @@ class ClusterRuntime:
         else:
             decision = self.gs.schedule(request, now)
             inst = decision.instance
-            if decision.migration is not None \
-                    or decision.prefetch is not None:
-                # E2 plans these only for host-tier spans
-                raise NotImplementedError("host-tier migration/prefetch "
-                                          "is not ported yet")
+            if decision.migration is not None:
+                self._execute_migration(request, inst, decision.migration,
+                                        now)
+            # the prefetch rider: a migrated span just landed in the
+            # target's host tier, so its prefetch queue can start moving
+            # it (and any other host chain) to the card while the
+            # request waits
+            prefetch = decision.prefetch
             if request.trace is not None:
                 request.trace.point(
                     "schedule", now, instance=inst, mode=decision.mode,
                     cost=decision.cost, cached=decision.cached_len,
-                    missed=decision.missed_len)
-        self.engines[inst].scheduler.enqueue(request, now)
+                    missed=decision.missed_len,
+                    migrated=request.migrated_len,
+                    prefetch=prefetch is not None)
+        self.engines[inst].scheduler.enqueue(request, now,
+                                             prefetch=prefetch)
         return inst
+
+    # ---- tier-to-tier migration -------------------------------------------
+
+    def _execute_migration(self, request: Request, dst: int,
+                           plan: MigrationPlan, now: float) -> None:
+        """HostKVStore -> HostKVStore transfer: export the planned span
+        from the source's host tier (whole-node numpy pieces), ingest on
+        the target (re-aligned to ITS tree, host-marked, LRU charged),
+        and feed the executed ranges back to the global forest. The
+        target's restore path then materializes the span on the card
+        instead of recomputing the prefill. Whatever part of the plan no
+        longer exists just recomputes — the same path an injected
+        migration failure (whole or partial) degrades through."""
+        src_e = self.engines.get(plan.src)
+        dst_e = self.engines.get(dst)
+        if (src_e is None or dst_e is None or src_e.failed
+                or dst_e.host_store is None):
+            return
+        spans = src_e.scheduler.export_host_span(request.tokens,
+                                                 plan.lo, plan.hi)
+        if not spans:
+            return
+        if self.faults is not None and self.faults.dma_fails("migrate"):
+            # the inter-host transfer failed; a partial failure keeps a
+            # leading prefix of the whole-node pieces (still contiguous
+            # from plan.lo, hence still ingestible)
+            spans = spans[:self.faults.partial_keep(len(spans))]
+            if not spans:
+                return
+        accepted = dst_e.scheduler.ingest_host_span(request.tokens, spans,
+                                                    now)
+        if accepted:
+            request.migrated_len = sum(hi - lo for lo, hi in accepted)
+            self.gs.on_migration(plan.src, dst, request.tokens, accepted,
+                                 now)
+            self.stats["migrations"] += 1
+            self.stats["migrated_tokens"] += request.migrated_len
 
     # ---- the loop ----------------------------------------------------------
 
@@ -280,7 +343,13 @@ class ClusterRuntime:
             self._recover_instance(inst, now)   # oracle fallback
 
     def _crashed_mid_step(self, inst: int, now: float) -> None:
-        """``InstanceCrashed`` escaped ``eng.step``."""
+        """``InstanceCrashed`` escaped ``eng.step``: the engine died
+        with (possibly) prefetch scatters and demote copies in flight."""
+        eng = self.engines[inst]
+        tier = eng.scheduler.host_tier
+        if eng._prefetch_inflight or (tier is not None
+                                      and getattr(tier, "_pending", None)):
+            self.stats["crash_with_inflight_dma"] += 1
         if self.telemetry is not None:
             self.telemetry.event("crash", now, instance=inst,
                                  mid_step=True)
@@ -362,17 +431,38 @@ class ClusterRuntime:
                 inst, eng.scheduler.residency_digest(), now)
         return repairs
 
+    def fault_stats(self) -> Dict[str, int]:
+        """The injector's own counters (empty dict on fault-free runs)."""
+        return dict(self.faults.stats) if self.faults is not None else {}
+
+    def engine_stats(self) -> Dict[int, Dict[str, int]]:
+        """Per-instance engine stats snapshot (includes the fused
+        plane's dispatch accounting: model_dispatches, fused_iterations)."""
+        return {i: dict(e.stats) for i, e in self.engines.items()}
+
     # ---- reconciliation ---------------------------------------------------------
 
     def check_invariants(self) -> None:
-        """Cross-layer reconciliation, valid at any point of a run: every
-        alive engine's page pool passes its refcount/free-list checks,
-        scheduler accounting never goes negative, ("req", id) tables
-        exist only for live requests, and every global cached-token
-        gauge stays non-negative."""
+        """Cross-layer reconciliation, valid at any point of a run:
+
+        * every alive engine's page pool (and draft pool) passes its
+          refcount/free-list checks, and ("req", id) / ("dr", id)
+          tables exist only for live requests;
+        * scheduler token accounting and every global cached-token
+          gauge (device and host) stay non-negative;
+        * BOTH tiers reconcile: the host store's byte accounting equals
+          the scheduler's host-LRU token accounting entry for entry, and
+          the host tier respects its capacity;
+        * the speculative-restore pipeline is quiescent between steps:
+          no staged restore, no prefetch record or staging table
+          survives its step, and every reserved-but-unclaimed prefetch
+          page was refunded.
+        """
         for i, eng in self.engines.items():
             if eng.failed:
                 continue
+            if eng.host_store is not None:
+                eng._drain_demotes()   # land in-flight demote copies
             eng.pool.check_invariants()
             live_reqs = {("req", rid) for rid in eng.live}
             req_tables = {k for k in eng.pool.tables
@@ -380,11 +470,48 @@ class ClusterRuntime:
             assert req_tables <= live_reqs, (
                 f"instance {i}: leaked request tables "
                 f"{req_tables - live_reqs}")
+            if eng.draft is not None:
+                eng.draft.pool.check_invariants()
+                dr_tables = {k for k in eng.draft.pool.tables
+                             if isinstance(k, tuple) and k[0] == "dr"}
+                live_dr = {("dr", rid) for rid in eng.live}
+                assert dr_tables <= live_dr, (
+                    f"instance {i}: leaked draft tables "
+                    f"{dr_tables - live_dr}")
             assert eng.scheduler.used_tokens >= 0, (
                 f"instance {i}: negative scheduler token accounting")
+            if eng.host_store is not None:
+                sch = eng.scheduler
+                eng.host_store.check_invariants()
+                assert sch.host_used_tokens == eng.host_store.used_tokens, (
+                    f"instance {i}: host tier accounting diverged "
+                    f"(scheduler {sch.host_used_tokens} vs store "
+                    f"{eng.host_store.used_tokens})")
+                assert set(sch._host_lru) == set(eng.host_store.entries), (
+                    f"instance {i}: host tier entry sets diverged")
+                assert (sch.host_used_tokens
+                        <= sch.config.host_capacity_tokens), (
+                    f"instance {i}: host tier over capacity")
+                assert not eng._pending_restore, (
+                    f"instance {i}: unflushed restore stage")
+                assert not eng._prefetch_inflight, (
+                    f"instance {i}: undrained prefetch records")
+                assert not sch._prefetch_recs, (
+                    f"instance {i}: prefetch records survived their "
+                    f"step")
+                assert sch.prefetch_reserved_tokens == 0, (
+                    f"instance {i}: reserved-but-unclaimed prefetch "
+                    f"pages not refunded at drain")
+                pf_tables = [k for k in eng.pool.tables
+                             if isinstance(k, tuple) and k[0] == "pf"]
+                assert not pf_tables, (
+                    f"instance {i}: leaked prefetch staging tables "
+                    f"{pf_tables}")
         for i, inst in self.gs.instances.items():
             assert inst.cached_tokens >= 0, (
                 f"global gauge for instance {i} went negative")
+            assert inst.host_cached_tokens >= 0, (
+                f"global host gauge for instance {i} went negative")
 
     # ---- fault handling --------------------------------------------------------
 
@@ -402,6 +529,54 @@ class ClusterRuntime:
         for r in reqs:
             self._reroute(r, now)
         return len(reqs)
+
+    def drain_instance(self, inst: int, now: float) -> int:
+        """Graceful drain (planned failover / scale-down): MIGRATE the
+        instance's host-tier entries — shallowest first — to the
+        least-loaded surviving instance with a host tier (a move: the
+        source markings transfer), then re-route its in-flight
+        requests. Re-hits on the drained instance's demoted prefixes
+        keep costing a restore, not a recompute. Returns tokens
+        migrated out."""
+        src_e = self.engines[inst]
+        moved = 0
+        targets = [j for j, e in self.engines.items()
+                   if j != inst and not e.failed
+                   and e.host_store is not None
+                   and self.gs.instances[j].alive]
+        if targets and src_e.host_store is not None and not src_e.failed:
+            src_e._drain_demotes()
+            loads = self.gs.loads(now)
+            dst = min(targets, key=lambda j: loads.get(j, 0.0))
+            dst_ls = self.engines[dst].scheduler
+            src_ls = src_e.scheduler
+            # SHALLOW-first: a child span can only land on the target
+            # after its ancestor created the start boundary there
+            for key in sorted(src_ls._host_lru,
+                              key=lambda k: k.depth):
+                nid = src_ls._host_nodes.get(key)
+                node = src_ls.tree.get_node(nid) if nid is not None else None
+                if node is None:
+                    continue
+                tokens = node.full_tokens()
+                end = node.depth_tokens()
+                start = end - len(node.tokens)
+                toks = src_ls._host_lru.get(key, 0)
+                if toks < end - start:
+                    continue   # partial entry: its tail edge is not a
+                               # node boundary anywhere — recompute it
+                spans = src_ls.export_host_span(tokens, start, end)
+                accepted = dst_ls.ingest_host_span(tokens, spans, now)
+                if accepted:
+                    moved += sum(hi - lo for lo, hi in accepted)
+                    self.gs.on_migration(inst, dst, tokens, accepted, now,
+                                         move=True)
+            self.stats["drain_migrated_tokens"] += moved
+        reqs = src_e.fail()
+        self.gs.remove_instance(inst, now)
+        for r in reqs:
+            self._reroute(r, now)
+        return moved
 
     def add_instance(self, model_cfg, params, now: float,
                      engine_cfg: Optional[EngineConfig] = None) -> int:

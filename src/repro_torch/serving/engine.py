@@ -12,21 +12,43 @@ Pure-decode iterations run the bucketed decode step
 (``_decode_batch_paged``). Radix-tree nodes alias the pool through
 per-node page tables; eviction maps to ``release``.
 
+With ``host_capacity_tokens > 0`` the pool grows a second tier:
+eviction DEMOTES node KV to host RAM (``serving/kv_offload.py``) instead
+of dropping it, and a later prefix hit RESTORES it into fresh pages
+instead of recomputing the prefill. ``prefetch_budget_tokens > 0`` adds
+speculative restore: waiting requests' host chains are scattered into
+node pages ahead of their admission. ``speculative`` attaches a draft
+model (``serving/speculative.py``) whose K proposals per decode slot are
+verified inside the same single fused target dispatch.
+
 The model runs eagerly in PyTorch on ``device`` ("cuda" unless the
 caller asks for "cpu"); pool tensors are updated in place. Batches keep
-the reference's power-of-two buckets (``_bucket``), so padding lanes and
-``fused_padded_tokens`` match the JAX engine exactly.
+the reference's power-of-two buckets (``batch.bucket``), so padding lanes
+and ``fused_padded_tokens`` match the JAX engine exactly; host-tier
+copies are not bucketed (they hold exactly the pages or tokens moved).
+
+Streams (CUDA engines). The model, the CoW page copies, the demote
+gathers and the admission-restore scatters run on the compute stream
+(the current stream), in the order the reference dispatches them, so
+every read sees the writes dispatched before it. Two kinds of copy run
+on the engine's own ``copy_stream``, which first waits on the compute
+stream: a demote's device-to-host copy (``PagedHostTier``), and a
+prefetch's host-to-device copy and page scatter, which writes only pages
+freshly appended to its ("pf", id) table; the compute stream waits on
+that scatter's event in ``_drain_prefetches``, before any later step can
+read the pages. Host data crosses in pinned buffers with
+``non_blocking=True``; the host blocks only where the reference reads
+bytes (a demote's drain, a step's predictions).
 
 Not ported yet (construction raises ``NotImplementedError``): the dense
-plane (``paged=False``), the host KV tier and its prefetch, speculative
-decoding, and tensor-parallel instances.
+plane (``paged=False``) and tensor-parallel instances.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,13 +56,16 @@ import torch
 from .. import full_precision_matmuls
 from ..bridge import tree_to
 from ..core.local_scheduler import Batch, LocalScheduler, LocalSchedulerConfig
-from ..core.radix_tree import PrefixSpan
+from ..core.radix_tree import PathKey, PrefixSpan
 from ..core.request import Request
 from ..models import zoo
-from .batch import ForwardBatch, ModelWorkerBatch
-from .faults import InstanceCrashed
+from .batch import ForwardBatch, ModelWorkerBatch, bucket, lower_arrays
+from .faults import CircuitBreaker, InstanceCrashed
 from .kv_cache import PagedKVPool
-from .telemetry import StatsDict
+from .kv_offload import (CopyLog, HostKVStore, PagedHostTier, host_numpy,
+                         tree_concat, tree_leaves)
+from .speculative import DraftWorker, SpeculativeConfig
+from .telemetry import StatsDict, frac_of
 
 Pytree = Any
 
@@ -66,28 +91,45 @@ class EngineConfig:
     # None/True: fused ragged iterations; False: the per-request prefill
     # loop, kept as the fused plane's comparison baseline
     fused: Optional[bool] = None
-    # not ported yet: must stay at their defaults
+    # host-offload tier budget in tokens. 0 disables the tier (eviction
+    # drops KV); >0: eviction demotes node KV to host RAM and a later
+    # prefix hit restores it into fresh pages instead of recomputing
     host_capacity_tokens: int = 0
+    # speculative-restore budget (requires the host tier). >0: waiting
+    # requests' host chains are scattered into node pages ahead of their
+    # admission, so admission aliases them and restores nothing
     prefetch_budget_tokens: int = 0
+    # tensor-parallel degree: not ported yet, must stay 1
     chips_per_instance: int = 1
-    speculative: Optional[Any] = None
+    # draft-model speculative decoding (requires the fused plane). None
+    # disables it; a SpeculativeConfig turns every decode slot with >= 2
+    # tokens of headroom into a K+1-token verify chunk inside the same
+    # single fused dispatch, with greedy-exact outputs
+    speculative: Optional[SpeculativeConfig] = None
 
     @property
     def device_capacity_tokens(self) -> int:
         return self.capacity_tokens * max(self.chips_per_instance, 1)
 
 
-def _bucket(n: int) -> int:
-    """Next power of two >= n: batches are padded to bucket sizes (the
-    reference's retrace bound; kept so padding matches it)."""
-    return 1 << max(n - 1, 0).bit_length()
-
-
 def _check_ported(econf: EngineConfig) -> None:
+    """The reference's plane checks (ValueError), then the planes the
+    port lacks (NotImplementedError)."""
+    paged = econf.paged is None or econf.paged
+    fused = paged and (econf.fused is None or econf.fused)
+    if econf.fused and not paged:
+        raise ValueError("fused ragged iterations require the paged data "
+                         "plane")
+    if econf.host_capacity_tokens > 0 and not paged:
+        raise ValueError("the host-offload KV tier requires the paged data "
+                         "plane (dense state is not pageable)")
+    if econf.prefetch_budget_tokens > 0 and econf.host_capacity_tokens <= 0:
+        raise ValueError("speculative restore prefetches HOST-tier spans: "
+                         "set host_capacity_tokens > 0")
+    if econf.speculative is not None and not fused:
+        raise ValueError("speculative decoding rides the fused mixed "
+                         "dispatch: it requires the paged fused plane")
     unported = {"paged=False": econf.paged is False,
-                "host_capacity_tokens>0": econf.host_capacity_tokens > 0,
-                "prefetch_budget_tokens>0": econf.prefetch_budget_tokens > 0,
-                "speculative": econf.speculative is not None,
                 "chips_per_instance>1": econf.chips_per_instance > 1}
     on = [k for k, v in unported.items() if v]
     if on:
@@ -103,6 +145,11 @@ class Engine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine: CUDA is not available; pass "
                                "device='cpu' to run on the CPU")
+        # host<->device copies beside the compute stream (module doc)
+        self.copy_stream = (torch.cuda.Stream(self.device)
+                            if self.device.type == "cuda" else None)
+        # host<->device copy timing: None until attach_copy_log()
+        self.copy_log: Optional[CopyLog] = None
         full_precision_matmuls()
         # the engine serves full attention; SWA only changes semantics
         # beyond max_context
@@ -119,25 +166,66 @@ class Engine:
                 max_batch_tokens=econf.max_batch_tokens,
                 max_batch_requests=econf.max_batch_requests,
                 priority_groups=econf.priority_groups,
-                fcfs=econf.fcfs),
+                fcfs=econf.fcfs,
+                host_capacity_tokens=econf.host_capacity_tokens,
+                prefetch_budget_tokens=econf.prefetch_budget_tokens,
+                spec_verify_tokens=(econf.speculative.k
+                                    if econf.speculative is not None
+                                    else 0)),
             on_evict=self._on_evict)
         # external eviction notification (protocol v2): called as
         # cb(instance_id, spans, demoted=[...], host_dropped=[...])
         self._ext_evict = on_evict
         # per-request live state: next input token
         self.live: Dict[int, Dict[str, Any]] = {}
+        # the *_overlap_frac and acceptance ratios are DERIVED at read
+        # time; spec_draft_dispatches counts the draft's propose
+        # dispatches and never touches model_dispatches, which stays one
+        # target dispatch per iteration
         self.stats = StatsDict(
             {"reused_tokens": 0, "prefilled_tokens": 0,
              "decode_steps": 0, "iterations": 0,
              "decode_batches": 0,
              "seed_aliased_pages": 0, "seed_copied_pages": 0,
              "aborted": 0, "model_dispatches": 0,
-             "fused_iterations": 0, "fused_padded_tokens": 0})
+             "fused_iterations": 0, "fused_padded_tokens": 0,
+             "demoted_tokens": 0, "restored_tokens": 0,
+             "restore_failures": 0, "demote_dispatches": 0,
+             "restore_dispatches": 0, "demote_batches": 0,
+             "demote_batches_overlapped": 0,
+             "prefetch_issued": 0, "prefetch_hit": 0,
+             "prefetch_wasted": 0, "prefetch_dispatches": 0,
+             "prefetch_batches": 0,
+             "prefetch_batches_overlapped": 0,
+             "spec_proposed_tokens": 0, "spec_accepted_tokens": 0,
+             "spec_rejected_tokens": 0, "spec_verify_lanes": 0,
+             "spec_draft_dispatches": 0, "spec_degraded": 0},
+            derived={"demote_overlap_frac":
+                     frac_of("demote_batches_overlapped",
+                             "demote_batches"),
+                     "prefetch_overlap_frac":
+                     frac_of("prefetch_batches_overlapped",
+                             "prefetch_batches"),
+                     "spec_acceptance_frac":
+                     frac_of("spec_accepted_tokens",
+                             "spec_proposed_tokens")})
         self.telemetry = None
         self.failed = False
         # fault injection: None on fault-free runs (every hook is behind
         # an `is not None` check)
         self.faults = None
+        self._cb: Optional[CircuitBreaker] = None
+        self.host_store: Optional[HostKVStore] = None
+        # the draft plane: None on non-speculative engines
+        self.draft: Optional[DraftWorker] = None
+        # restores staged by admissions, flushed once per step
+        self._pending_restore: List[Tuple[np.ndarray, np.ndarray, Any]] = []
+        # speculative restores in flight this step: (record,
+        # model_dispatches at issue); their scatter was issued, the
+        # bookkeeping lands at _drain_prefetches after the model runs
+        self._prefetch_inflight: List[Tuple[dict, int]] = []
+        # the copy stream's event of this step's prefetch scatter
+        self._prefetch_event = None
         self._init_paged()
 
     # ================= paged data plane =====================================
@@ -153,17 +241,78 @@ class Engine:
         self._scratch_page = self.pool.reserve_page()   # page 0, pinned
         assert self._scratch_page == 0
         self._pages_per_req = -(-self.econf.max_context // ps)
+        if self.copy_stream is not None:
+            # a prefetch scatter may still be writing the old pool
+            self.copy_stream.synchronize()
         self.pages = None            # drop the old pool before allocating
+        self.draft = None
         self.pages = self.api.paged_cache_specs(n_pages, ps, self.device)
+        leaves = tree_leaves(self.pages)
+        self.leaf_paths = [p for p, _ in leaves]
+        self._leaves = [a for _, a in leaves]
+        # the draft model's own paged plane, rebuilt with the pool
+        if self.econf.speculative is not None:
+            self.draft = DraftWorker(self.econf.speculative, self.econf,
+                                     self.device)
         # keep node->page aliases aligned with radix node splits
         self.scheduler.tree.split_hooks.append(self._on_split)
+        # the host tier: the scheduler owns demote/drop policy,
+        # PagedHostTier moves the bytes, the store holds them
+        self._pending_restore = []
+        self._prefetch_inflight = []
+        self._prefetch_event = None
+        if self.econf.host_capacity_tokens > 0:
+            self.host_store = HostKVStore()
+            self.scheduler.host_tier = PagedHostTier(self, self.host_store)
+            self.scheduler.tree.split_hooks.append(self._on_split_host)
+        else:
+            self.host_store = None
 
     def _copy_page(self, src: int, dst: int) -> None:
         """Copy one page of every pool leaf (the CoW device copy)."""
-        for groups in self.pages.values():
-            for kv in groups.values():
-                for a in kv.values():
-                    a[dst].copy_(a[src])
+        for a in self._leaves:
+            a[dst].copy_(a[src])
+
+    # ---- host tier: device-side gathers and scatters ---------------------
+
+    def gather_pages_device(self, page_ids: List[int]) -> torch.Tensor:
+        """Demote-side snapshot: ONE gather over an entire eviction
+        plan's pages, of every pool leaf, into a FRESH device tensor
+        [n_leaves, n, PS, KH, D] on the compute stream. The host tier
+        copies it to the host at once, on the copy stream. Unlike the
+        reference, which pads to a power-of-two bucket so jit sees few
+        shapes, the gather holds exactly the plan's pages: eager PyTorch
+        compiles nothing, and padding would only cross the host link."""
+        idx = lower_arrays((np.asarray(page_ids, np.int32),),
+                           self.device)[0]
+        a0 = self._leaves[0]
+        out = torch.empty((len(self._leaves), len(page_ids)) + a0.shape[1:],
+                          dtype=a0.dtype, device=self.device)
+        for i, a in enumerate(self._leaves):
+            torch.index_select(a, 0, idx, out=out[i])
+        self.stats["demote_dispatches"] += 1
+        return out
+
+    def _drain_demotes(self) -> None:
+        """Land pending demote bytes host-side (end of step, or forced
+        by a read that needs the store complete)."""
+        ht = self.scheduler.host_tier
+        if ht is not None:
+            ht.drain()
+        if self.copy_log is not None:
+            self.copy_log.fold()
+
+    def _host_entry(self, key):
+        """Store lookup that only forces the pending demote copy to land
+        when THIS entry is still in flight — ordinary misses (never-
+        demoted nodes) must not break the demote/compute overlap."""
+        e = self.host_store.get(key)
+        if e is None:
+            ht = self.scheduler.host_tier
+            if ht is not None and ht.pending_has(key):
+                ht.drain()
+                e = self.host_store.get(key)
+        return e
 
     # ---- host-side page bookkeeping ----------------------------------------
 
@@ -228,11 +377,28 @@ class Engine:
             self.pool.fork(key_t, key_h, min(d_head, t.num_tokens))
             self.pool.release(key_t)
 
+    def _on_split_host(self, head, tail) -> None:
+        """Split hook for the host tier: a demoted span crossing the
+        new node boundary is split between head and tail entries. If
+        that span's demote copy is still in flight, land it first —
+        otherwise the store would miss the split the scheduler's LRU
+        already applied and the two tiers diverge permanently."""
+        if self.host_store is not None:
+            ht = self.scheduler.host_tier
+            # at hook time tail.path_key IS the pre-split key
+            if ht is not None and ht.pending_has(tail.path_key):
+                ht.drain()
+            self.host_store.on_split(head, tail)
+
     # ---- eviction hook ------------------------------------------------------
 
     def _on_evict(self, instance_id: int, spans: List[PrefixSpan], *,
                   demoted: List[PrefixSpan] = (),
                   host_dropped: List[PrefixSpan] = ()) -> None:
+        # demote_many already released the tables of spans it saw, but
+        # the scheduler may skip spans entirely (one-shot under host
+        # pressure): release unconditionally — a second release is a
+        # no-op, a leaked table would pin its pages forever
         for s in spans:
             self.pool.release(("node", s.key))
         if self._ext_evict is not None:
@@ -252,7 +418,10 @@ class Engine:
     def _admit_paged(self, r: Request, now: float) -> None:
         """Seed a request by ALIASING the matched prefix's pages: fork the
         deepest covering node sequence — refcount increments only, zero
-        KV device copies."""
+        KV device copies. With the host tier, the reusable prefix may
+        extend past the aliased part through demoted spans: those are
+        RESTORED — fresh pages are allocated and the host KV is staged
+        for one batched scatter this step — instead of recomputed."""
         # node-aligned match: _reserve already split any partially
         # matching node at this prompt's boundary
         m = self.scheduler.tree.match(r.tokens, now=now)
@@ -265,10 +434,43 @@ class Engine:
         # a fully-cached prompt still runs its LAST token through the
         # model: that forward produces the first output token
         reuse = min(best_len, r.prompt_len - 1)
+        # host-tier restore plan: demoted spans contiguously extending
+        # the aliased prefix (planned BEFORE _ensure_free, revalidated
+        # after — freeing room can cascade into host-capacity drops).
+        # An OPEN circuit breaker disables restore planning for its
+        # cooldown: the request recomputes the demoted span
+        restore_plan: List[Tuple[PathKey, int, int, int]] = []
+        if self.host_store is not None and best_len == reuse \
+                and (self._cb is None or self._cb.allow(now)):
+            restore_plan, _ = self._host_restore_chain(
+                m, reuse, r.prompt_len - 1)
         rid = ("req", r.request_id)
         need = r.prompt_len - reuse + r.max_new_tokens
         # + one page of headroom for the CoW of a shared partial tail
         self._ensure_free(need + self.pool.page_size, now)
+        restore_end = reuse
+        for key, nid, lo, hi in restore_plan:
+            if self.faults is not None and self.faults.dma_fails("restore"):
+                # injected host->device copy failure: recompute the rest
+                # of the chain; the breaker opens after repeated hits
+                self.stats["restore_failures"] += 1
+                if self._cb is not None:
+                    self._cb.record_failure(now)
+                break
+            e = self._host_entry(key)
+            if (e is None or e.node_id != nid
+                    or e.start > lo or e.start + e.length < hi):
+                # host entry evicted mid-flight (demote cascade of
+                # _ensure_free overflowed the host budget) or rekeyed
+                # under a collided digest: recompute the rest
+                self.stats["restore_failures"] += 1
+                break
+            restore_end = hi
+        if self._cb is not None and restore_end > reuse:
+            self._cb.record_success()
+        restore_plan = [(key, nid, lo, min(hi, restore_end))
+                        for key, nid, lo, hi in restore_plan
+                        if lo < restore_end]
         if best_key is not None and reuse > 0:
             self.pool.fork(best_key, rid, reuse)
             self.stats["seed_aliased_pages"] += len(
@@ -281,16 +483,261 @@ class Engine:
         except MemoryError:
             self.pool.release(rid)    # don't leak the table
             raise
+        if restore_end > reuse:
+            self._stage_restore(r, rid, reuse, restore_end, restore_plan)
         # surface the difference between the scheduler's reservation and
         # the aliased length so admission gating sees the true occupancy
+        # (restored tokens occupy fresh pages: only the ALIASED length
+        # offsets the reservation)
         delta = r.device_cached_len - reuse
         if delta:
             self.scheduler.used_tokens = max(
                 self.scheduler.used_tokens + delta, 0)
         self.scheduler.set_account(r.request_id, need)
         self.live[r.request_id] = {"next": None}
-        r.prefill_done = reuse
-        self.stats["reused_tokens"] += reuse
+        r.prefill_done = restore_end
+        self.stats["reused_tokens"] += restore_end
+
+    def _host_restore_chain(self, m, boundary: int, limit: int
+                            ) -> Tuple[List[Tuple[PathKey, int, int, int]],
+                                       int]:
+        """Walk the match path past the device-aliased ``boundary`` and
+        chain host entries that contiguously extend it, stopping at the
+        first hole or ``limit`` (= prompt_len - 1, the reuse cap).
+        Entries resolve by path key with node-ownership verification;
+        an entry whose demote copy is still in flight forces a targeted
+        drain. Returns ([(key, node_id, lo, hi)], new_boundary) in
+        absolute token depths."""
+        plan: List[Tuple[PathKey, int, int, int]] = []
+        cum = 0
+        for node in m.path:
+            node_start = cum
+            cum += len(node.tokens)
+            if cum <= boundary:
+                continue
+            if node_start != boundary or boundary >= limit:
+                break
+            e = self._host_entry(node.path_key)
+            if e is None or e.node_id != node.node_id \
+                    or e.start != node_start:
+                break
+            take = min(e.length, limit - boundary)
+            if take <= 0:
+                break
+            plan.append((node.path_key, node.node_id, node_start,
+                         node_start + take))
+            boundary = node_start + take
+            if boundary < cum:        # partial span ends the chain
+                break
+        return plan, boundary
+
+    def _stage_restore(self, r: Request, rid, lo: int, hi: int,
+                       plan: List[Tuple[PathKey, int, int, int]]) -> None:
+        """Stage the host->device scatter for tokens [lo, hi) of the
+        request's sequence: map each restored token onto its (page,
+        slot) in the request's freshly appended table and queue the
+        host KV; ``_flush_restores`` runs ONE scatter per step for all
+        admissions."""
+        pidx, sidx = self._token_page_slots(self.pool.tables[rid],
+                                            self.pool.page_size, lo, hi)
+        data = tree_concat([self.host_store.read_span(key, nid, a, b)
+                            for key, nid, a, b in plan])
+        self._pending_restore.append((pidx, sidx, data))
+        for key, _, _, _ in plan:
+            self.scheduler.touch_host(key)
+        self.stats["restored_tokens"] += hi - lo
+
+    def _scatter_staged(self, staged: List[Tuple], side: bool = False):
+        """ONE (page, slot) scatter of every pool leaf for a list of
+        staged (pidx, sidx, data) triples — shared by the admission-
+        restore flush and the prefetch path. The host data is packed
+        into one pinned buffer [n_leaves, n, KH, D] (exactly the staged
+        tokens: no bucket padding, see ``gather_pages_device``) and
+        copied in one ``non_blocking`` copy. ``side=False``: copy and
+        scatter on the compute stream, so this step's model dispatch
+        sees the KV in stream order. ``side=True``: on the copy stream,
+        after the compute stream's work so far; returns the scatter's
+        event (None on a CPU engine)."""
+        pidx = np.concatenate([s[0] for s in staged])
+        sidx = np.concatenate([s[1] for s in staged])
+        a0 = self._leaves[0]
+        cuda = self.device.type == "cuda"
+        host = torch.empty((len(self._leaves), len(pidx)) + a0.shape[2:],
+                           dtype=a0.dtype, pin_memory=cuda)
+        hnp = host_numpy(host)
+        cols = zip(*[[x for _, x in tree_leaves(s[2])] for s in staged])
+        for i, col in enumerate(cols):
+            np.concatenate(col, axis=0, out=hnp[i])
+        if not cuda:
+            self._scatter_pages(host, torch.from_numpy(pidx).long(),
+                                torch.from_numpy(sidx).long())
+            return None
+        compute = torch.cuda.current_stream(self.device)
+        stream = self.copy_stream if side else compute
+        if side:
+            stream.wait_stream(compute)
+        log = self.copy_log
+        with torch.cuda.stream(stream):
+            ev0 = log.start(stream) if log is not None else None
+            dev = host.to(self.device, non_blocking=True)
+            if log is not None:
+                log.stop("h2d", host.nbytes, ev0, stream)
+            pi, si = lower_arrays((pidx, sidx), self.device)
+            self._scatter_pages(dev, pi.long(), si.long())
+            if not side:
+                return None
+            ev = torch.cuda.Event()
+            ev.record(stream)
+            return ev
+
+    def _scatter_pages(self, data: torch.Tensor, pi: torch.Tensor,
+                       si: torch.Tensor) -> None:
+        """Write data[l, t] into leaf l at (page pi[t], slot si[t])."""
+        for a, d in zip(self._leaves, data):
+            a.index_put_((pi, si), d)
+
+    @staticmethod
+    def _token_page_slots(table, page_size: int, lo: int, hi: int
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+        """(page, slot) coordinates of tokens [lo, hi) in a table."""
+        toks = np.arange(lo, hi)
+        pages_arr = np.asarray(table.pages, np.int32)
+        return pages_arr[toks // page_size], (toks % page_size).astype(
+            np.int32)
+
+    def _flush_restores(self) -> None:
+        """Apply every restore staged by this step's admissions as ONE
+        scatter on the compute stream, ahead of the model."""
+        staged, self._pending_restore = self._pending_restore, []
+        if not staged:
+            return
+        self._scatter_staged(staged)
+        self.stats["restore_dispatches"] += 1
+
+    # ---- speculative restore: the prefetch stream --------------------------
+
+    def _issue_prefetches(self, now: float) -> None:
+        """Ask the scheduler's prefetch queue for work, stage each
+        record's host bytes onto fresh pages, and issue ONE batched
+        (page, slot) scatter for all of them on the copy stream — issued
+        BEFORE the step's model dispatch, so the copy runs beside it; the
+        bookkeeping drains after the model. Runs after this step's
+        admissions, so no record is ever in flight while
+        ``_admit_paged`` walks the tables."""
+        if self.host_store is None or not self.scheduler.prefetch_enabled:
+            return
+        if self._cb is not None and not self._cb.allow(now):
+            return              # breaker open: no speculative copy either
+        staged: List[Tuple[dict, Tuple]] = []
+        for rec in self.scheduler.plan_prefetch(now):
+            if self.faults is not None and self.faults.dma_fails("prefetch"):
+                # injected speculative-restore copy failure: cancel the
+                # record (its reservation refunds; admission restores or
+                # recomputes on the critical path instead)
+                if self._cb is not None:
+                    self._cb.record_failure(now)
+                self.scheduler.cancel_prefetch(rec["id"], now)
+                continue
+            got = self._stage_prefetch(rec)
+            if got is None:
+                self.scheduler.cancel_prefetch(rec["id"], now)
+            else:
+                if self._cb is not None:
+                    self._cb.record_success()
+                staged.append((rec, got))
+        if not staged:
+            return
+        self._prefetch_event = self._scatter_staged(
+            [s for _, s in staged], side=True)
+        self.stats["prefetch_dispatches"] += 1
+        self._prefetch_inflight = [
+            (rec, self.stats["model_dispatches"]) for rec, _ in staged]
+
+    def _stage_prefetch(self, rec: dict) -> Optional[Tuple]:
+        """Build one record's device-side staging: fork the deepest
+        node table covering the record's device boundary into a
+        ``("pf", id)`` table, append fresh pages for [lo, hi), and map
+        every prefetched token onto its (page, slot). Revalidates the
+        host entries against the byte store (an entry mid-demote forces
+        a targeted drain) and trims the record to what actually exists.
+        Returns (pidx, sidx, data) or None when the chain cannot be
+        staged."""
+        sch = self.scheduler
+        tokens, lo = rec["tokens"], rec["lo"]
+        m = sch.tree.match(tokens)
+        best_key, best_len, off = None, 0, 0
+        for node in m.path:
+            off += len(node.tokens)
+            if off > lo:
+                break
+            t = self.pool.tables.get(("node", node.path_key))
+            if t is not None and t.num_tokens >= off:
+                best_key, best_len = ("node", node.path_key), off
+        if lo > 0 and best_len < lo:
+            return None     # device base never materialized: the
+                            # landed span could not be reached anyway
+        hi_eff = lo
+        chunks = []
+        for key, nid, a, b in rec["spans"]:
+            self._host_entry(key)   # land an in-flight demote first
+            piece = self.host_store.read_span(key, nid, a, b,
+                                              speculative=True)
+            if piece is None:
+                break
+            chunks.append(piece)
+            hi_eff = b
+        if hi_eff <= lo:
+            return None
+        if hi_eff < rec["hi"]:
+            sch.trim_prefetch(rec["id"], hi_eff)
+            if rec["cancelled"]:
+                return None
+        pfid = ("pf", rec["id"])
+        if best_key is not None and lo > 0:
+            self.pool.fork(best_key, pfid, lo)
+        else:
+            self.pool.create(pfid)
+        try:
+            self._append_with_cow(pfid, hi_eff - lo)
+        except MemoryError:
+            self.pool.release(pfid)
+            return None     # fragmentation squeeze: never evict for
+                            # speculative work at staging time
+        pidx, sidx = self._token_page_slots(self.pool.tables[pfid],
+                                            self.pool.page_size, lo, hi_eff)
+        rec["pfid"] = pfid
+        self.stats["prefetch_issued"] += hi_eff - lo
+        return pidx, sidx, tree_concat(chunks)
+
+    def _drain_prefetches(self, now: float) -> None:
+        """Land this step's speculative restores: order the compute
+        stream after their scatter (the host does not wait), publish
+        each record's pages as node aliases (zero-copy forks at the
+        issue-time boundaries), hand the policy bookkeeping back to the
+        scheduler, and record whether the copy overlapped a model
+        dispatch."""
+        if self._prefetch_event is not None:
+            torch.cuda.current_stream(self.device).wait_event(
+                self._prefetch_event)
+            self._prefetch_event = None
+        inflight, self._prefetch_inflight = self._prefetch_inflight, []
+        for rec, disp_at in inflight:
+            pfid = rec.get("pfid")
+            if rec["cancelled"]:
+                # cancelled mid-flight (split under it, abort): the
+                # scatter already ran — release the staging pages
+                if pfid is not None and pfid in self.pool.tables:
+                    self.pool.release(pfid)
+                continue
+            for key, _, _, b in rec["spans"]:
+                nkey = ("node", key)
+                if nkey not in self.pool.tables:
+                    self.pool.fork(pfid, nkey, b)
+            self.pool.release(pfid)
+            self.scheduler.complete_prefetch(rec["id"], now)
+            self.stats["prefetch_batches"] += 1
+            if self.stats["model_dispatches"] > disp_at:
+                self.stats["prefetch_batches_overlapped"] += 1
 
     # ---- post-prefill: publish the prompt's KV to the prefix store ----------
 
@@ -316,31 +763,54 @@ class Engine:
 
     def step(self, now: float) -> List[Request]:
         """Run one continuous-batching iteration; returns finished (and
-        aborted) requests. Iterations with prefill work make ONE fused
-        dispatch (``_run_mixed``); pure-decode iterations one bucketed
-        decode dispatch."""
+        aborted) requests. Iterations with prefill work — and, on a
+        speculative engine, every iteration — make ONE fused target
+        dispatch (``_run_mixed``); other pure-decode iterations one
+        bucketed decode dispatch.
+
+        Order on the card: admissions (CoW page copies, demote gathers
+        and their copies), the restore scatter, the prefetch scatter
+        (copy stream), the model; then, after the model, the prefetch
+        publish and the demote drains."""
         batch = self.scheduler.form_batch(now)
-        if not batch.items:
+        if not batch.items and not self.scheduler.prefetch_enabled:
             if self.faults is not None \
                     and self.faults.take_crash(self.econf.instance_id):
                 raise InstanceCrashed(self.econf.instance_id)
             return []
-        self.stats["iterations"] += 1
-        aborted = self._admit_new(batch, now)
-        if aborted:
-            batch.items = [it for it in batch.items
-                           if it.request not in aborted]
-        # an armed mid-step crash fires after admissions took pool pages,
-        # before the model runs
+        finished: List[Request] = []
+        aborted: List[Request] = []
+        newly_prefilled: List[Request] = []
+        if batch.items:
+            self.stats["iterations"] += 1
+            aborted = self._admit_new(batch, now)
+            if aborted:
+                batch.items = [it for it in batch.items
+                               if it.request not in aborted]
+            # restores staged by this step's admissions land as one
+            # scatter BEFORE the model reads any lane's KV
+            if self._pending_restore:
+                self._flush_restores()
+
+        # speculative restores issue AFTER admission (no record is in
+        # flight while _admit_paged walks tables) and BEFORE the model
+        # dispatch, so their copy runs beside it
+        self._issue_prefetches(now)
+
+        # an armed mid-step crash fires HERE — after admissions took
+        # pool pages and prefetch scatters went in flight, before the
+        # model runs
         if self.faults is not None \
                 and self.faults.take_crash(self.econf.instance_id):
             raise InstanceCrashed(self.econf.instance_id)
-        finished: List[Request] = []
-        newly_prefilled: List[Request] = []
+
         if batch.items:
             has_prefill = any(it.chunk_tokens > 0
                               for it in batch.prefill_items())
-            if self.fused and has_prefill:
+            # speculative engines route decode-only iterations through
+            # _run_mixed too: their decode slots become verify chunks,
+            # still ONE target dispatch per iteration either way
+            if self.fused and (has_prefill or self.draft is not None):
                 newly_prefilled = self._run_mixed(batch)
             else:
                 newly_prefilled = self._run_prefills(batch)
@@ -355,8 +825,21 @@ class Engine:
                 if item.phase == "decode" and r.output_tokens:
                     r.output_tokens[-1] = self.live[r.request_id]["next"]
             for r in finished:
-                self.live.pop(r.request_id, None)
+                lv = self.live.pop(r.request_id, None)
                 self.pool.release(("req", r.request_id))
+                if self.draft is not None:
+                    self.draft.release(r.request_id)
+                    self._observe_spec(r, lv, now)
+        # land this step's speculative restores (the publish runs after
+        # _store_prefix so a same-step split cancels cleanly first),
+        # then the demote copies
+        self._drain_prefetches(now)
+        if self.host_store is not None:
+            self._drain_demotes()
+            self.stats["prefetch_hit"] = self.scheduler.stats[
+                "prefetch_hit"]
+            self.stats["prefetch_wasted"] = self.scheduler.stats[
+                "prefetch_wasted"]
         return finished + aborted
 
     def _admit_new(self, batch: Batch, now: float) -> List[Request]:
@@ -411,15 +894,56 @@ class Engine:
         into ONE dispatch. Chunks fill a [Lc, C] half padded to a common
         bucketed chunk length; decode slots fill a [Ld] single-token half.
         Padding lanes carry all-zero table rows (the scratch page absorbs
-        their KV writes)."""
+        their KV writes). On a speculative engine, decode slots with
+        output headroom become K+1-token verify chunks of the same
+        dispatch."""
         chunk_items = [it for it in batch.prefill_items()
                        if it.chunk_tokens > 0]
         dec_items = batch.decode_items()
         if not chunk_items and not dec_items:
             return []
-        Lc = _bucket(len(chunk_items))
-        Cb = _bucket(max([it.chunk_tokens for it in chunk_items] + [1]))
-        Ld = _bucket(len(dec_items))
+        # --- speculative split: decode slots with >= 2 tokens of output
+        # headroom become verify chunks; the rest (and any lane the
+        # draft pool couldn't stage) stay plain decode ---
+        spec_lanes: List[Tuple[Request, int, List[int], int]] = []
+        plain_dec = dec_items
+        if self.draft is not None and dec_items:
+            want: List[Tuple[Request, int]] = []
+            plain_dec = []
+            for it in dec_items:
+                r = it.request
+                # committing a + 1 <= k_eff + 1 tokens this step must
+                # never overshoot max_new_tokens (output_tokens already
+                # holds the pending token)
+                k_eff = min(self.draft.k,
+                            r.max_new_tokens - len(r.output_tokens) - 1)
+                if k_eff > 0:
+                    want.append((r, k_eff))
+                else:
+                    plain_dec.append(it)
+            props = self.draft.propose(want) if want else {}
+            for r, k_eff in want:
+                d = props.get(r.request_id)
+                if d is None:       # draft pool squeeze: degrade
+                    plain_dec.append(next(
+                        it for it in dec_items if it.request is r))
+                else:
+                    pos = r.prompt_len + len(r.output_tokens) - 1
+                    spec_lanes.append((r, k_eff, d, pos))
+            self.stats["spec_draft_dispatches"] = self.draft.dispatches
+            self.stats["spec_degraded"] = self.draft.degraded
+            if not chunk_items and not spec_lanes:
+                # everything degraded / out of headroom: the plain
+                # bucketed pure-decode dispatch (still one per step)
+                if plain_dec:
+                    self._decode_batch_paged(
+                        [it.request for it in plain_dec])
+                return []
+        n_pref = len(chunk_items)
+        Lc = bucket(n_pref + len(spec_lanes))
+        Cb = bucket(max([it.chunk_tokens for it in chunk_items]
+                         + [k + 1 for _, k, _, _ in spec_lanes] + [1]))
+        Ld = bucket(len(plain_dec))
         ctoks = np.zeros((Lc, Cb), np.int32)
         cstart = np.zeros(Lc, np.int32)
         clen = np.zeros(Lc, np.int32)
@@ -427,33 +951,53 @@ class Engine:
             r, s, n = it.request, it.request.prefill_done, it.chunk_tokens
             ctoks[i, :n] = r.tokens[s:s + n]
             cstart[i], clen[i] = s, n
+        # verify lanes ride the SAME chunk half: [pending, d1..dK] at
+        # the request's current context position against its own pages
+        # (reserved at admission; rejected target KV is overwritten
+        # positionally by the next step's chunk)
+        for v, (r, k_eff, d, pos) in enumerate(spec_lanes):
+            i = n_pref + v
+            ctoks[i, 0] = self.live[r.request_id]["next"]
+            ctoks[i, 1:k_eff + 1] = d
+            cstart[i], clen[i] = pos, k_eff + 1
         cpt = self._page_table_rows(
-            [("req", it.request.request_id) for it in chunk_items],
+            [("req", it.request.request_id) for it in chunk_items]
+            + [("req", r.request_id) for r, _, _, _ in spec_lanes],
             n_rows=Lc)
         dtoks = np.zeros(Ld, np.int32)
         dpos = np.zeros(Ld, np.int32)
-        for i, it in enumerate(dec_items):
+        for i, it in enumerate(plain_dec):
             r = it.request
             dtoks[i] = self.live[r.request_id]["next"]
             dpos[i] = r.prompt_len + len(r.output_tokens) - 1
         dpt = self._page_table_rows(
-            [("req", it.request.request_id) for it in dec_items], n_rows=Ld)
+            [("req", it.request.request_id) for it in plain_dec],
+            n_rows=Ld)
         # ONE host-to-device copy of the step's inputs, one dispatch
         fb = ForwardBatch.lower(
             ModelWorkerBatch(ctoks, cstart, clen, cpt, dtoks, dpos, dpt),
             self.device)
-        nxt, self.pages = self.api.mixed_paged(
-            self.params, self.pages,
-            {"chunk_tokens": fb.chunk_tokens, "chunk_start": fb.chunk_start,
-             "chunk_len": fb.chunk_len,
-             "chunk_page_table": fb.chunk_page_table,
-             "dec_tokens": fb.dec_tokens, "dec_pos": fb.dec_pos,
-             "dec_page_table": fb.dec_page_table})
-        nxt = nxt.cpu().numpy()         # waits for the device
+        inputs = {"chunk_tokens": fb.chunk_tokens,
+                  "chunk_start": fb.chunk_start,
+                  "chunk_len": fb.chunk_len,
+                  "chunk_page_table": fb.chunk_page_table,
+                  "dec_tokens": fb.dec_tokens, "dec_pos": fb.dec_pos,
+                  "dec_page_table": fb.dec_page_table}
+        if spec_lanes:
+            nxt, cpred, self.pages = self.api.mixed_paged_spec(
+                self.params, self.pages, inputs)
+            # one device-to-host copy of both results (waits for the card)
+            both = torch.cat([nxt, cpred.reshape(-1)]).cpu().numpy()
+            nxt, cpred = both[:nxt.numel()], both[nxt.numel():].reshape(
+                cpred.shape)
+        else:
+            nxt, self.pages = self.api.mixed_paged(
+                self.params, self.pages, inputs)
+            nxt = nxt.cpu().numpy()         # waits for the device
         self.stats["model_dispatches"] += 1
         self.stats["fused_iterations"] += 1
         self.stats["fused_padded_tokens"] += (
-            Lc * Cb + Ld - int(clen.sum()) - len(dec_items))
+            Lc * Cb + Ld - int(clen.sum()) - len(plain_dec))
         newly_prefilled: List[Request] = []
         for i, it in enumerate(chunk_items):
             r = it.request
@@ -464,18 +1008,57 @@ class Engine:
                 self.live[r.request_id]["next"] = tok
                 r.output_tokens.append(tok)
                 newly_prefilled.append(r)
-        for i, it in enumerate(dec_items):
+        # --- verification: cpred[lane, j] is the target's greedy
+        # prediction AFTER chunk token j, i.e. p_j. Accept d_j iff
+        # d_j == p_{j-1}; with `a` leading accepts the step commits
+        # d1..da + the target's correction p_a (= the plain path's next
+        # token when a = 0 — greedy speculation is token-exact) ---
+        for v, (r, k_eff, d, pos) in enumerate(spec_lanes):
+            preds = cpred[n_pref + v]
+            a = 0
+            while a < k_eff and d[a] == int(preds[a]):
+                a += 1
+            # accepted drafts land now; complete_iteration then appends
+            # its usual placeholder (the a+1-th committed token) which
+            # step()'s overwrite loop sets to the correction p_a
+            r.output_tokens.extend(d[:a])
+            lv = self.live[r.request_id]
+            lv["next"] = int(preds[a])
+            lv["spec_prop"] = lv.get("spec_prop", 0) + k_eff
+            lv["spec_acc"] = lv.get("spec_acc", 0) + a
+            self.draft.commit(r.request_id, pos, a)
+            self.stats["spec_proposed_tokens"] += k_eff
+            self.stats["spec_accepted_tokens"] += a
+            self.stats["spec_rejected_tokens"] += k_eff - a
+        for i, it in enumerate(plain_dec):
             self.live[it.request.request_id]["next"] = int(nxt[Lc + i])
         if dec_items:
             self.stats["decode_steps"] += len(dec_items)
             self.stats["decode_batches"] += 1
+            self.stats["spec_verify_lanes"] += len(spec_lanes)
         return newly_prefilled
+
+    def _observe_spec(self, r: Request, lv: Optional[Dict[str, Any]],
+                      now: float) -> None:
+        """Terminal speculative observation for one finished request:
+        the per-request acceptance-rate histogram + a ``spec`` trace
+        point."""
+        if not lv or not lv.get("spec_prop"):
+            return
+        prop, acc = lv["spec_prop"], lv["spec_acc"]
+        if self.telemetry is not None:
+            self.telemetry.registry.histogram(
+                "engine_spec_acceptance",
+                buckets=(0.1, 0.25, 0.5, 0.75, 0.9, 1.0),
+                instance=self.econf.instance_id).observe(acc / prop)
+        if r.trace is not None:
+            r.trace.point("spec", now, proposed=prop, accepted=acc)
 
     def _decode_batch_paged(self, dec: List[Request]) -> None:
         """Slot/bucket decode: live requests fill the first B lanes of a
         power-of-two bucket; padding lanes write into the scratch page."""
         B = len(dec)
-        Bb = _bucket(B)
+        Bb = bucket(B)
         tokens = np.zeros(Bb, np.int32)
         pos = np.zeros(Bb, np.int32)
         for i, r in enumerate(dec):
@@ -503,24 +1086,46 @@ class Engine:
 
     # ---- failure ---------------------------------------------------------------
 
-    def attach_faults(self, faults) -> None:
+    def attach_faults(self, faults,
+                      breaker: Optional[CircuitBreaker] = None) -> None:
         """Wire the cluster's shared fault injector into this engine's
-        fault points (the reference's circuit breaker guards the host
-        tier's restore path, which is not ported)."""
+        fault points, plus a per-instance circuit breaker over the
+        host-tier restore/prefetch path (only when the tier exists)."""
         self.faults = faults
+        if self.econf.host_capacity_tokens > 0:
+            self._cb = breaker if breaker is not None else CircuitBreaker()
+
+    def attach_copy_log(self) -> CopyLog:
+        """Time this engine's host<->device copies from now on (CUDA
+        events on the stream that runs each copy, and the host wall
+        blocked in the demote drain); returns the log. CPU engines
+        record nothing."""
+        if self.copy_log is None:
+            self.copy_log = CopyLog()
+        return self.copy_log
 
     def attach_telemetry(self, telemetry) -> None:
         """Bind this engine's stats surfaces into the shared telemetry
-        registry (engine_* / sched_* series labeled with the instance id)
-        and register a callback gauge over the live token accounting."""
+        registry (engine_* / sched_* / hoststore_* series labeled with
+        the instance id) and register callback gauges over the live
+        token accounting."""
         inst = self.econf.instance_id
         self.telemetry = telemetry
         self.stats = telemetry.adopt(self.stats, "engine", instance=inst)
         sch = self.scheduler
         sch.telemetry = telemetry
         sch.stats = telemetry.adopt(sch.stats, "sched", instance=inst)
+        if self.host_store is not None:
+            self.host_store.stats = telemetry.adopt(
+                self.host_store.stats, "hoststore", instance=inst)
         telemetry.gauge_fn("sched_used_tokens",
                            lambda s=sch: s.used_tokens, instance=inst)
+        telemetry.gauge_fn("sched_host_used_tokens",
+                           lambda s=sch: s.host_used_tokens,
+                           instance=inst)
+        telemetry.gauge_fn("sched_prefetch_reserved_tokens",
+                           lambda s=sch: s.prefetch_reserved_tokens,
+                           instance=inst)
 
     def crash(self) -> None:
         """SILENT death: the data plane stops, the scheduler's queues stay
@@ -535,7 +1140,8 @@ class Engine:
         self.failed = True
         self.live.clear()
         reqs = self.scheduler.drain()
-        self._init_paged()      # fresh pool + re-hook the new tree
+        # fresh pool, host store, tier and draft plane + re-hook the tree
+        self._init_paged()
         return reqs
 
     @property

@@ -528,3 +528,226 @@ def test_attention_kernels_reject_cpu_mix(card):
     qf = _card(rng, f32, 1, 4, 64, 32)
     with pytest.raises(ValueError):
         flash_attention(qf, k[:1].cpu(), k[:1])
+
+
+# ---------------------------------------------------------------------------
+# the serving plane on the card: host tier, prefetch, speculation
+# ---------------------------------------------------------------------------
+
+def _small_engine_model(dtype="float32"):
+    import dataclasses
+    from repro_torch import bridge
+    from repro_torch.configs import ARCHS, reduced
+    cfg = dataclasses.replace(reduced(ARCHS["smollm-360m"]), n_layers=2,
+                              dtype=dtype)
+    return cfg, bridge.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+
+
+def _tier_econf(**kw):
+    from repro_torch.serving.engine import EngineConfig
+    base = dict(max_context=64, chunk_size=16, max_batch_tokens=16,
+                capacity_tokens=160, page_size=8,
+                host_capacity_tokens=4096, prefetch_budget_tokens=128)
+    base.update(kw)
+    return EngineConfig(**base)
+
+
+def _thrash(eng, vocab, seed=3):
+    """Warm two shared prefixes, then three times: thrash them
+    host-side with unique prompts and re-hit them queued behind a busy
+    unique (the prefetch window), then thrash again and re-hit them on
+    an idle engine (admission restores)."""
+    from repro_torch.core.request import Request
+    rng = np.random.default_rng(seed)
+    shared = [tuple(rng.integers(1, vocab, 36).tolist()) for _ in range(2)]
+    now, done, n = 0.0, [], 0
+
+    def put(tokens, out):
+        nonlocal n
+        eng.scheduler.enqueue(Request(tokens=tokens, max_new_tokens=out),
+                              now)
+        n += 1
+
+    def drain():
+        nonlocal now
+        for _ in range(3000):
+            if len(done) >= n:
+                return
+            done.extend(eng.step(now))
+            now += 0.01
+        raise AssertionError("engine did not converge")
+
+    for s in shared:
+        put(s + tuple(rng.integers(1, vocab, 5).tolist()), 3)
+    drain()
+    for _ in range(3):
+        for _ in range(3):
+            put(tuple(rng.integers(1, vocab, int(rng.integers(38, 50)))
+                      .tolist()), 2)
+        drain()
+        put(tuple(rng.integers(1, vocab, 45).tolist()), 2)
+        done.extend(eng.step(now))
+        now += 0.01
+        for s in shared:
+            put(s + tuple(rng.integers(1, vocab, 4).tolist()), 3)
+        drain()
+        for _ in range(3):
+            put(tuple(rng.integers(1, vocab, 44).tolist()), 2)
+            drain()
+        for s in shared:
+            put(s + tuple(rng.integers(1, vocab, 4).tolist()), 3)
+        drain()
+    return {tuple(r.tokens): list(r.output_tokens) for r in done}
+
+
+TIER_STATS = ("demoted_tokens", "restored_tokens", "prefetch_issued",
+              "prefetch_hit", "restore_dispatches", "demote_batches",
+              "reused_tokens", "prefilled_tokens", "model_dispatches")
+
+
+@pytest.mark.cuda
+def test_host_tier_thrash_card_matches_cpu(card):
+    """Demote, restore and prefetch on the card (copy stream, pinned
+    buffers) against the same engine on the CPU: token-identical, same
+    tier stats."""
+    from repro_torch.serving.engine import Engine
+    cfg, params = _small_engine_model()
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(cfg, params, _tier_econf(), device=dev)
+        eng.attach_copy_log()
+        runs[dev] = (_thrash(eng, cfg.vocab_size), eng)
+    (cout, ceng), (gout, geng) = runs["cpu"], runs["cuda"]
+    assert gout == cout
+    for k in TIER_STATS:
+        assert geng.stats[k] == ceng.stats[k], k
+    for k in ("demoted_tokens", "restored_tokens", "prefetch_issued"):
+        assert geng.stats[k] > 0, k
+    geng._drain_demotes()
+    geng.host_store.check_invariants()
+    t = geng.copy_log.fold(block=True)
+    assert t["d2h_bytes"] > 0 and t["h2d_bytes"] > 0
+
+
+@pytest.mark.cuda
+def test_speculation_card_matches_cpu(card):
+    """A perfect draft on the card: acceptance exactly 1.0 and the CPU
+    engine's tokens."""
+    from repro_torch.core.request import Request
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.speculative import SpeculativeConfig
+    cfg, params = _small_engine_model()
+    outs, stats = {}, {}
+    for dev in ("cpu", "cuda"):
+        spec = SpeculativeConfig(draft_cfg=cfg, k=4, draft_params=params)
+        eng = Engine(cfg, params, EngineConfig(
+            max_context=96, chunk_size=16, max_batch_tokens=128,
+            max_batch_requests=16, capacity_tokens=4096, page_size=16,
+            speculative=spec), device=dev)
+        rng = np.random.default_rng(5)
+        reqs = [Request(tokens=tuple(rng.integers(1, cfg.vocab_size,
+                                                  int(rng.integers(8, 20)))
+                                     .tolist()), max_new_tokens=24)
+                for _ in range(6)]
+        for r in reqs:
+            eng.scheduler.enqueue(r, 0.0)
+        now, done = 0.0, []
+        while len(done) < len(reqs):
+            done += eng.step(now)
+            now += 0.01
+        outs[dev] = [list(r.output_tokens) for r in reqs]
+        stats[dev] = dict(eng.stats)
+        assert not eng.draft.pool.tables
+        eng.draft.pool.check_invariants()
+    assert outs["cuda"] == outs["cpu"]
+    g = stats["cuda"]
+    assert g["spec_proposed_tokens"] > 0
+    assert g["spec_acceptance_frac"] == 1.0
+    assert g["model_dispatches"] == g["iterations"]
+    for k in ("spec_proposed_tokens", "spec_accepted_tokens", "iterations"):
+        assert g[k] == stats["cpu"][k], k
+
+
+def _served_nodes(eng, vocab):
+    """Serve one 40-token prompt; return its radix path with each node's
+    span and the pool pages/bits that hold it."""
+    from repro_torch.core.request import Request
+    r = Request(tokens=tuple(np.random.default_rng(1)
+                             .integers(1, vocab, 40).tolist()),
+                max_new_tokens=2)
+    eng.scheduler.enqueue(r, 0.0)
+    now, done = 0.0, []
+    while not done:
+        done = eng.step(now)
+        now += 0.01
+    out = []
+    for node in eng.scheduler.tree.match(r.tokens).path:
+        t = eng.pool.tables[("node", node.path_key)]
+        end = node.depth_tokens()
+        start = end - len(node.tokens)
+        bits = [_as_bits(a[t.pages].reshape(-1, *a.shape[2:])[start:end])
+                .cpu() for a in eng._leaves]
+        out.append((node, start, end, list(t.pages), bits))
+    return out
+
+
+def _as_bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+@pytest.mark.cuda
+def test_demote_snapshot_survives_page_overwrite(card):
+    """demote_many gathers the pages on the compute stream and copies
+    them to the host on the copy stream; the pages are released and
+    overwritten on the compute stream (behind a spin, so the copy would
+    lose a race it was not ordered for) before drain. The store must
+    hold the pre-overwrite bytes."""
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.kv_offload import tree_leaves
+    cfg, params = _small_engine_model()
+    eng = Engine(cfg, params, _tier_econf(prefetch_budget_tokens=0),
+                 device="cuda")
+    spans = _served_nodes(eng, cfg.vocab_size)
+    tier = eng.scheduler.host_tier
+    torch.cuda._sleep(50_000_000)            # keep the compute stream busy
+    got = tier.demote_many([n for n, *_ in spans])
+    pages = sorted({p for *_, ps, _ in spans for p in ps})
+    idx = torch.tensor(pages, device="cuda")
+    for a in eng._leaves:
+        a.index_fill_(0, idx, 7.0)           # overwrite, compute stream
+    assert tier.pending_has(spans[0][0].path_key)
+    tier.drain()
+    assert all(bool((a[idx] == 7.0).all()) for a in eng._leaves)
+    for node, start, end, _, bits in spans:
+        assert got[node.path_key] == end - start
+        e = eng.host_store.get(node.path_key)
+        assert (e.start, e.length) == (start, end - start)
+        for (_, leaf), want in zip(tree_leaves(e.kv), bits):
+            np.testing.assert_array_equal(leaf, want.numpy())
+
+
+@pytest.mark.cuda
+def test_bf16_demote_restore_bytes_round_trip(card):
+    """A bfloat16 span demoted through the scheduler's eviction and
+    scattered back into fresh pages reads back bit-identical."""
+    from repro_torch.serving.engine import Engine
+    cfg, params = _small_engine_model("bfloat16")
+    eng = Engine(cfg, params, _tier_econf(prefetch_budget_tokens=0),
+                 device="cuda")
+    spans = _served_nodes(eng, cfg.vocab_size)
+    sch, pool = eng.scheduler, eng.pool
+    sch.apply_eviction(sch.tree.plan_eviction(0, sch.used_tokens + 1), 1.0)
+    eng._drain_demotes()
+    pool.create(("req", -1))
+    pool.append(("req", -1), spans[-1][2])
+    dst = pool.tables[("req", -1)]
+    for node, start, end, _, bits in spans:
+        entry = eng.host_store.get(node.path_key)
+        assert (entry.start, entry.length) == (start, end - start)
+        pidx, sidx = eng._token_page_slots(dst, pool.page_size, start, end)
+        eng._scatter_staged([(pidx, sidx, entry.kv)])
+        for a, want in zip(eng._leaves, bits):
+            back = a[dst.pages].reshape(-1, *a.shape[2:])[start:end]
+            assert back.dtype == torch.bfloat16
+            assert torch.equal(_as_bits(back).cpu(), want)

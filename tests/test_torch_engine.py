@@ -172,10 +172,35 @@ def test_engine_defaults_to_the_card(small_model):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("paged", False), ("host_capacity_tokens", 64),
-    ("prefetch_budget_tokens", 64), ("speculative", object()),
-    ("chips_per_instance", 2)])
+    ("paged", False), ("chips_per_instance", 2)])
 def test_unported_planes_raise(small_model, field, value):
     _, _, tcfg, tparams = small_model
     with pytest.raises(NotImplementedError):
         TEngine(tcfg, tparams, TEngineConfig(**{field: value}), device="cpu")
+
+
+@pytest.mark.parametrize("plane", ["host_tier", "prefetch", "speculative"])
+def test_ported_planes_build_on_cpu_and_default_to_the_card(small_model,
+                                                            plane):
+    """The host tier, its prefetch and speculation build on the CPU when
+    asked for it; without device= they run on CUDA or raise, never
+    falling back to the CPU. Prefetch without the tier is refused, as
+    in the JAX package."""
+    from repro_torch.serving.speculative import SpeculativeConfig
+    _, _, tcfg, tparams = small_model
+    kw = {"host_tier": dict(host_capacity_tokens=64),
+          "prefetch": dict(host_capacity_tokens=64,
+                           prefetch_budget_tokens=64),
+          "speculative": dict(speculative=SpeculativeConfig(
+              draft_cfg=dataclasses.replace(tcfg, n_layers=1)))}[plane]
+    eng = TEngine(tcfg, tparams, TEngineConfig(**kw), device="cpu")
+    assert (eng.draft is not None) == (plane == "speculative")
+    assert (eng.host_store is not None) == (plane != "speculative")
+    if plane == "prefetch":
+        assert eng.scheduler.prefetch_enabled
+        with pytest.raises(ValueError, match="host_capacity_tokens"):
+            TEngine(tcfg, tparams, TEngineConfig(prefetch_budget_tokens=64),
+                    device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TEngine(tcfg, tparams, TEngineConfig(**kw))

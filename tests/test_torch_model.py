@@ -1,7 +1,8 @@
 """The port's model math against the JAX package: the parameter/pool
-bridge, the shared building blocks, and the three paged entry points
-(decode_paged, extend_paged, mixed_paged) on the same bridged float32
-parameters, pools and batches.
+bridge, the shared building blocks, and the paged entry points
+(decode_paged, extend_paged, mixed_paged and its verification variant
+mixed_paged_spec) on the same bridged float32 parameters, pools and
+batches.
 
 Tolerances: greedy tokens must be identical. Pool leaves agree to an
 absolute 1e-5, or 4e-6 of the leaf's largest entry where that is larger
@@ -66,13 +67,15 @@ def _pools(cfg, seed):
 def _run_both(models, entry, batch, seed=0):
     jcfg, _, japi, jparams, tapi, tparams = models
     pools = _pools(jcfg, seed)
-    jnxt, jpages = getattr(japi, entry)(
+    jnxt, *jpreds, jpages = getattr(japi, entry)(
         jparams, jax.tree.map(jnp.asarray, pools),
         {k: jnp.asarray(v) for k, v in batch.items()})
     tpages = bridge.tree_from_numpy(pools, "cpu")
-    tnxt, tpages = getattr(tapi, entry)(
+    tnxt, *tpreds, tpages = getattr(tapi, entry)(
         tparams, tpages, {k: torch.from_numpy(v) for k, v in batch.items()})
     np.testing.assert_array_equal(tnxt.numpy(), np.asarray(jnxt))
+    for t, j in zip(tpreds, jpreds):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
     got, exp = bridge.tree_to_numpy(tpages), _np_tree(jpages)
     for g, kv in exp["p0"].items():
         for n, a in kv.items():
@@ -115,9 +118,22 @@ def test_mixed_paged_matches_jax(models):
     assert nxt.shape == (4,)
 
 
-def test_mixed_paged_spec_is_not_ported(models):
-    with pytest.raises(NotImplementedError):
-        models[4].mixed_paged_spec(models[5], {}, {})
+def test_mixed_paged_spec_matches_jax(models):
+    """The verification head: the same batch as mixed_paged (a ragged
+    chunk lane stands in for a K+1-token verify lane); chunk_pred must be
+    identical at every position, pad positions included."""
+    rng = np.random.default_rng(2)
+    batch = {"chunk_tokens": rng.integers(1, 100, (2, 8)).astype(np.int32),
+             "chunk_start": np.array([5, 20], np.int32),
+             "chunk_len": np.array([8, 3], np.int32),
+             "chunk_page_table": np.array([[1, 2, 0, 0], [3, 4, 0, 0]],
+                                          np.int32),
+             "dec_tokens": np.array([9, 0], np.int32),
+             "dec_pos": np.array([33, 0], np.int32),
+             "dec_page_table": np.array([[5, 6, 7, 0], [0, 0, 0, 0]],
+                                        np.int32)}
+    nxt = _run_both(models, "mixed_paged_spec", batch)
+    assert nxt.shape == (4,)
 
 
 def test_build_raises_for_unported_configs():
