@@ -14,7 +14,8 @@ From the root of a checkout. It
    times kernel, plain version and a PyTorch library call at those
    shapes with CUDA events, beside the least time the card could take,
    with the paged kernel's split plan (n_splits, grid blocks) and
-   occupancy at each shape;
+   occupancy at each shape; also at mistral-7b's width (G 4, D 128,
+   8 lanes of up to 1024 tokens);
 3. drives the kernel library (``repro_torch.kernels.bench.run``, the
    counterpart of the JAX package's ``benchmarks/bench_kernels.py``)
    on the card with every launch count at 0, holds the split-K decode,
@@ -44,9 +45,22 @@ From the root of a checkout. It
    one target dispatch per iteration, draft dispatches, no leaked draft
    table and the kernel's launch count (target and draft); prints the
    acceptance and tokens/s with speculation on and off;
-7. checks the served outputs against the same engine on the CPU on a
-   small float32 config (token-identical);
-8. profiles a second, smaller full-width serve with torch.profiler:
+7. serves mistral-7b at full width (32 layers, d 4096, 32/8 heads,
+   D 128, d_ff 14336, bf16, random weights from the seed, ~14.5 GB) on
+   one engine, 8 toolbench requests in two waves, once on the automatic
+   plane (paged fused) and once with paged=False; checks that every
+   request finished with prefix reuse on both, that the dense plane's
+   decode ran the split-K decode kernel (32 launches a decode batch) and
+   never the paged one, and the paged plane the reverse; prints steps,
+   dispatches, reuse, wall, peak memory and the share of tokens on which
+   the two planes agree; then holds each of the two kernels against its
+   plain version on every input (shapes, lens, page tables) its plane
+   gave it, times the last of each lane count, and frees the weights;
+8. checks the served outputs against the same engine on the CPU on
+   small float32 configs (token-identical): smollm-360m on the paged and
+   the dense plane, mistral-7b on the dense plane, and raw mistral-7b's
+   prefill and decode steps past its window (the ring cache wraps);
+9. profiles a second, smaller full-width serve with torch.profiler:
    device busy share, launches per step, the costliest kernels, and the
    paged decode kernel's launches and share of device time.
 
@@ -56,6 +70,8 @@ run outside a checkout of the repo.
 """
 
 import contextlib
+import functools
+import gc
 import importlib
 import io
 import json
@@ -280,82 +296,27 @@ def kernel_phase(torch, PA):
     # draft makes of a lane whose budget is spent: an all-zero page-table
     # row and pos 0, so it reads (len 1) and writes the scratch page's
     # slot 0; the draft's live rows hold only their own pages, zeros past
-    # them, as the engine builds them.
-    H, KH, D, PS = 15, 5, 64, 16
+    # them, as the engine builds them. Then mistral-7b's width (G 4, D
+    # 128): 8 lanes of 64-page rows (its phase's max context 1024), lens
+    # ragged up to 1024.
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     rows = []
+    smollm = ("smollm-360m", 15, 5, 64)
     for B, P, max_len, masked in ((1, 128, 2048, 0), (8, 128, 2048, 0),
                                   (32, 128, 2048, 0), (8, 64, 349, 0),
                                   (1, 64, 804, 0), (2, 64, 373, 0),
                                   (4, 64, 373, 0), (8, 64, 376, 3),
                                   (1, 64, 1, 1)):
-        rng = torch.Generator().manual_seed(B * P)
-        lens = torch.randint(1, max_len + 1, (B,), generator=rng)
-        lens[0] = max_len
-        if B > 2:
-            lens[1] = 16 * (max_len // 64)       # page-exact boundary
-        if masked:
-            lens[B - masked:] = 1
-        lens = lens.tolist()
-        inp = paged_inputs(torch, B, H, KH, PS, P, D, torch.bfloat16, lens,
-                           seed=1000 + B)
-        if masked:
-            pt = inp[3]
-            for b, n in enumerate(lens):
-                pt[b, 0 if b >= B - masked else -(-n // PS):] = 0
-        name = f"paged main path B{B} P{P} len<={max_len}" + (
-            f" ({masked} masked)" if masked else "")
-        err = compare(torch, PA, name, inp, BF16)
-        q, k, v, pt, ln = inp
-        n_splits, pps = PA.plan_for(q, k, pt)
-        S = P * PS
-        idx = pt.long()
-        kg = k[idx].reshape(B, S, KH, D).permute(0, 2, 1, 3).contiguous()
-        vg = v[idx].reshape(B, S, KH, D).permute(0, 2, 1, 3).contiguous()
-        mask = (torch.arange(S, device="cuda")[None, :]
-                < ln[:, None])[:, None, None, :]
-        q4 = q[:, :, None, :]
-        gqa = {}
-        if tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5):
-            gqa = {"enable_gqa": True}
-        else:                       # no GQA in SDPA: repeat the KV heads
-            kg = kg.repeat_interleave(H // KH, dim=1)
-            vg = vg.repeat_interleave(H // KH, dim=1)
-
-        def library():
-            return torch.nn.functional.scaled_dot_product_attention(
-                q4, kg, vg, attn_mask=mask, **gqa)
-        lib_out = library()[:, :, 0]
-        check(bool(((lib_out.float() - PA.paged_decode_attention_plain(
-            *inp).float()).abs() <= 2e-2).all()),
-            f"{name}: library yardstick disagrees")
-        kernel_ms = time_ms(torch, lambda: PA.paged_decode_attention(*inp),
-                            flush)
-        plain_ms = time_ms(torch,
-                           lambda: PA.paged_decode_attention_plain(*inp),
-                           flush)
-        library_ms = time_ms(torch, library, flush)
-        ntok = sum(lens)
-        kv_bytes = ntok * KH * D * 2 * 2
-        other = (2 * B * H * D * 2 + B * 4
-                 + sum(math.ceil(n / PS) for n in lens) * 4)
-        bytes_ms = (kv_bytes + other) / HBM_BYTES_PER_S * 1e3
-        ops_ms = 4 * ntok * H * D / BF16_FLOPS * 1e3
-        row = dict(B=B, P=P, masked=masked, lens_max=max(lens), tokens=ntok,
-                   max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
-                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                   hbm_frac=max(bytes_ms, ops_ms) / kernel_ms,
-                   n_splits=n_splits, pages_per_split=pps,
-                   grid_blocks=n_splits * B * KH,
-                   launches=1 if n_splits == 1 else 2)
-        rows.append(row)
-        print("kernel: main path " + json.dumps(row))
+        rows.append(paged_row(torch, PA, flush, smollm, B, P, max_len,
+                              masked))
+    rows.append(paged_row(torch, PA, flush, ("mistral-7b", 32, 8, 128), 8,
+                          64, 1024, 0))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for r in rows:
-        blocks, regs, smem, tile = PA.occupancy(torch.bfloat16, H // KH, D,
-                                                r["pages_per_split"])
-        print(f"kernel: occupancy bf16 G{H // KH} D{D} B{r['B']} P{r['P']}: "
+        blocks, regs, smem, tile = PA.occupancy(
+            torch.bfloat16, r["H"] // r["KH"], r["D"], r["pages_per_split"])
+        print(f"kernel: occupancy bf16 G{r['H'] // r['KH']} D{r['D']} "
+              f"B{r['B']} P{r['P']}: "
               f"{r['n_splits']} splits of {r['pages_per_split']} pages "
               f"({tile}-token tiles), grid {r['grid_blocks']} blocks on "
               f"{sms} SMs; {blocks} resident blocks/SM x 128 threads, {regs} "
@@ -363,6 +324,88 @@ def kernel_phase(torch, PA):
               f"{r['launches']} launches a call")
     ptxas_lines("paged_attention", "paged_split_kernel")
     return rows
+
+
+def paged_row(torch, PA, flush, width, B, P, max_len, masked, PS=16):
+    """One main-path shape of the paged kernel with lens drawn up to
+    ``max_len``, bf16 pool, as ``paged_timed`` holds and times it.
+    ``width``: (model, H, KH, D)."""
+    model, H, KH, D = width
+    rng = torch.Generator().manual_seed(B * P)
+    lens = torch.randint(1, max_len + 1, (B,), generator=rng)
+    lens[0] = max_len
+    if B > 2:
+        lens[1] = 16 * (max_len // 64)       # page-exact boundary
+    if masked:
+        lens[B - masked:] = 1
+    lens = lens.tolist()
+    inp = paged_inputs(torch, B, H, KH, PS, P, D, torch.bfloat16, lens,
+                       seed=1000 + B)
+    if masked:
+        pt = inp[3]
+        for b, n in enumerate(lens):
+            pt[b, 0 if b >= B - masked else -(-n // PS):] = 0
+    name = f"paged main path {model} B{B} P{P} len<={max_len}" + (
+        f" ({masked} masked)" if masked else "")
+    return paged_timed(torch, PA, flush, model, name, inp, masked)
+
+
+def paged_timed(torch, PA, flush, model, name, inp, masked):
+    """The paged kernel on ``inp`` (q, bf16 pools, page table, lens) held
+    against the plain version, then kernel, plain version and SDPA on the
+    pre-gathered KV timed beside the bound; ``masked``: the lanes with an
+    all-zero (scratch) page-table row."""
+    err = compare(torch, PA, name, inp, BF16)
+    q, k, v, pt, ln = inp
+    B, H, D = q.shape
+    PS, KH = k.shape[1], k.shape[2]
+    P = pt.shape[1]
+    lens = ln.tolist()
+    n_splits, pps = PA.plan_for(q, k, pt)
+    S = P * PS
+    idx = pt.long()
+    kg = k[idx].reshape(B, S, KH, D).permute(0, 2, 1, 3).contiguous()
+    vg = v[idx].reshape(B, S, KH, D).permute(0, 2, 1, 3).contiguous()
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < ln[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    gqa = {}
+    if tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5):
+        gqa = {"enable_gqa": True}
+    else:                       # no GQA in SDPA: repeat the KV heads
+        kg = kg.repeat_interleave(H // KH, dim=1)
+        vg = vg.repeat_interleave(H // KH, dim=1)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, kg, vg, attn_mask=mask, **gqa)
+    lib_out = library()[:, :, 0]
+    check(bool(((lib_out.float() - PA.paged_decode_attention_plain(
+        *inp).float()).abs() <= 2e-2).all()),
+        f"{name}: library yardstick disagrees")
+    kernel_ms = time_ms(torch, lambda: PA.paged_decode_attention(*inp),
+                        flush)
+    plain_ms = time_ms(torch,
+                       lambda: PA.paged_decode_attention_plain(*inp),
+                       flush)
+    library_ms = time_ms(torch, library, flush)
+    ntok = sum(lens)
+    kv_bytes = ntok * KH * D * 2 * 2
+    other = (2 * B * H * D * 2 + B * 4
+             + sum(math.ceil(n / PS) for n in lens) * 4)
+    bytes_ms = (kv_bytes + other) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * ntok * H * D / BF16_FLOPS * 1e3
+    row = dict(width=model, H=H, KH=KH, D=D, B=B, P=P, masked=masked,
+               lens_max=max(lens), tokens=ntok,
+               max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               hbm_frac=max(bytes_ms, ops_ms) / kernel_ms,
+               n_splits=n_splits, pages_per_split=pps,
+               grid_blocks=n_splits * B * KH,
+               launches=1 if n_splits == 1 else 2)
+    print("kernel: main path " + json.dumps(row))
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -442,6 +485,29 @@ def full_width_cases(torch, seed=3):
                           + 2 * q.numel() * 2 + B * 4,
                           flops=4 * H * D * (B * Sp + ntok)))
     return cases
+
+
+def measure_row(torch, out, flush, kind, width, kernel, plain, library,
+                bytes_, flops, plain_n=10, library_n=30):
+    """Hold ``kernel()`` against ``plain()`` (bf16 bound) and the
+    yardstick ``library()`` against it too, then time all three beside
+    the bound of ``bytes_`` and ``flops``; the row is printed and kept in
+    ``out[kind]``."""
+    err = close(torch, f"{kind} {width}", kernel(), plain(), BF16)
+    # the yardstick may round P to bf16 before P V: a looser bound,
+    # still tight enough to catch a wrong mask
+    lib_err = close(torch, f"{kind} {width} yardstick", library(),
+                    plain(), dict(atol=5e-2, rtol=0.0))
+    b_ms, b_by = bound(bytes_, flops)
+    row = dict(width=width, max_abs_err=err, library_err=lib_err,
+               ms=time_ms(torch, kernel, flush),
+               plain_ms=time_ms(torch, plain, flush, n=plain_n),
+               library_ms=time_ms(torch, library, flush, n=library_n),
+               bound_ms=b_ms, bound_by=b_by, bytes=bytes_, flops=flops)
+    row["bound_frac"] = b_ms / row["ms"]
+    print(f"library: {kind} " + json.dumps(row))
+    out.setdefault(kind, []).append(row)
+    return row
 
 
 def library_phase(torch, bench, DA, PF, FA):
@@ -582,24 +648,7 @@ def library_phase(torch, bench, DA, PF, FA):
     bf = torch.bfloat16
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
-
-    def measure(kind, width, kernel, plain, library, bytes_, flops,
-                plain_n=10, library_n=30):
-        err = close(torch, f"{kind} {width}", kernel(), plain(), BF16)
-        # the yardstick may round P to bf16 before P V: a looser bound,
-        # still tight enough to catch a wrong mask
-        lib_err = close(torch, f"{kind} {width} yardstick", library(),
-                        plain(), dict(atol=5e-2, rtol=0.0))
-        b_ms, b_by = bound(bytes_, flops)
-        row = dict(width=width, max_abs_err=err, library_err=lib_err,
-                   ms=time_ms(torch, kernel, flush),
-                   plain_ms=time_ms(torch, plain, flush, n=plain_n),
-                   library_ms=time_ms(torch, library, flush, n=library_n),
-                   bound_ms=b_ms, bound_by=b_by, bytes=bytes_, flops=flops)
-        row["bound_frac"] = b_ms / row["ms"]
-        print(f"library: {kind} " + json.dumps(row))
-        out.setdefault(kind, []).append(row)
-
+    measure = functools.partial(measure_row, torch, out, flush)
     for case in full_width_cases(torch):
         kind, width, args = case["kind"], case["width"], case["args"]
         B, H, D = case["B"], case["H"], case["D"]
@@ -983,6 +1032,286 @@ def spec_phase(torch, PA, cfg, params, ClusterRuntime, EngineConfig,
     print("speculative: " + json.dumps(out))
 
 
+# mistral-7b, the paper's primary model, at full width on both data
+# planes: 8 toolbench prompts cut to a third of the context (as the serve
+# CLI scales them), each the shared head (the first MISTRAL_HEAD tokens of
+# the system prompt) and the last 41 - 4 i tokens of its own question, so
+# no two lanes hold the same tokens and their lens are ragged (341 down
+# to 313); 8 new tokens each; the first 2 run to completion before the
+# other 6 arrive, so the prefix store holds the head and the 6 reuse it
+# on either plane.
+MISTRAL_ECONF = dict(max_context=1024, chunk_size=64, max_batch_tokens=256,
+                     page_size=16, capacity_tokens=16384)
+MISTRAL_HEAD = 300
+
+
+def mistral_requests(Request, gen_workload, vocab):
+    return [Request(tokens=tuple(t % vocab for t in r.tokens[:MISTRAL_HEAD]
+                                 + r.tokens[-(41 - 4 * i):]),
+                    max_new_tokens=8, workload=r.workload)
+            for i, r in enumerate(gen_workload("toolbench", 8, seed=0))]
+
+
+def serve_waves(eng, reqs, first=2, max_iters=5000):
+    """Step one engine through reqs[:first], then the rest; returns the
+    engine steps taken."""
+    now, done, steps = 0.0, [], 0
+    for wave in (reqs[:first], reqs[first:]):
+        for r in wave:
+            eng.scheduler.enqueue(r, now)
+        target = len(done) + len(wave)
+        while len(done) < target and steps < max_iters:
+            done += eng.step(now)
+            now += 0.01
+            steps += 1
+    check(len(done) == len(reqs), f"{len(done)}/{len(reqs)} finished")
+    return steps
+
+
+@contextlib.contextmanager
+def tap_decode_kernels(torch, n_layers, served):
+    """While open, the model's calls of the split-K decode and paged
+    kernels go straight through to their wrappers (whose launch counts
+    stay their own), and the inputs of each dispatch's first-layer call
+    are kept in ``served[kind]`` ("decode", "paged"): q's shape, the
+    cache's ([B, KH, S, D] view or [N, PS, KH, D] pool) shape, the page
+    table (None for decode) and lens, cloned on the device without a
+    wait. Every layer of a dispatch gets the same lanes."""
+    from repro_torch.models import attention as A
+    orig = {"decode": A._split_k_decode, "paged": A.paged_decode_attention}
+    calls = dict.fromkeys(orig, 0)
+    before = {kind: len(served[kind]) for kind in orig}
+
+    def tapped(kind):
+        def call(q, k, v, *rest):
+            if calls[kind] % n_layers == 0:
+                pt = rest[0].clone() if kind == "paged" else None
+                served[kind].append((tuple(q.shape), tuple(k.shape), pt,
+                                     rest[-1].clone()))
+            calls[kind] += 1
+            return orig[kind](q, k, v, *rest)
+        return call
+    A._split_k_decode, A.paged_decode_attention = (tapped("decode"),
+                                                   tapped("paged"))
+    try:
+        yield
+    finally:
+        A._split_k_decode = orig["decode"]
+        A.paged_decode_attention = orig["paged"]
+    for kind, n in calls.items():
+        check(n == n_layers * (len(served[kind]) - before[kind]),
+              f"{kind}: {n} calls are not {n_layers} a dispatch")
+
+
+def served_shapes(torch, DA, PA, flush, served, model):
+    """Hold each kernel against its plain version on every input the
+    main path gave it (``tap_decode_kernels``): the same shapes, lens and
+    page tables, random bf16 q and KV; then time the last input of each
+    lane count beside its bound, its plain version and SDPA. Returns
+    {kind: [(lane count, dispatches, timed row)]}."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    bf = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for kind, calls in served.items():
+        last = {}
+        for qs, ks, pt, lens in calls:
+            B, H, D = qs
+            q = rand(torch, g, bf, *qs)
+            if kind == "paged":
+                k, v = rand(torch, g, bf, *ks), rand(torch, g, bf, *ks)
+                inp = (q, k, v, pt, lens)
+                masked = int((pt == 0).all(1).sum())
+                compare(torch, PA, f"paged served {model} B{B} "
+                        f"lens {lens.tolist()}", inp, BF16)
+            else:
+                KH, S = ks[1], ks[2]
+                # the model layout [B, S, KH, D], read through views
+                k = rand(torch, g, bf, B, S, KH, D).transpose(1, 2)
+                v = rand(torch, g, bf, B, S, KH, D).transpose(1, 2)
+                inp = (q, k, v, lens)
+                masked = 0
+                close(torch, f"decode served {model} B{B} "
+                      f"lens {lens.tolist()}", DA.decode_attention(*inp),
+                      DA.decode_attention_plain(*inp), BF16)
+            n = last.get(B, (0,))[0]
+            last[B] = (n + 1, inp, masked)
+        counts = {b: c[0] for b, c in sorted(last.items())}
+        print(f"{model}: {kind} kernel held against its plain version on "
+              f"all {len(calls)} served inputs (dispatches by lane count: "
+              f"{counts})")
+        for B, (n, inp, masked) in sorted(last.items()):
+            if kind == "paged":
+                row = paged_timed(torch, PA, flush, model,
+                                  f"paged served {model} B{B}", inp, masked)
+            else:
+                q, k, v, lens = inp
+                S, KH = k.shape[2], k.shape[1]
+                ntok = int(lens.sum())
+                mask = (torch.arange(S, device="cuda")[None, :]
+                        < lens[:, None])[:, None, None, :]
+                row = measure_row(
+                    torch, {}, flush, "decode_served",
+                    f"{model} dense serve B{B}",
+                    lambda a=inp: DA.decode_attention(*a),
+                    lambda a=inp: DA.decode_attention_plain(*a),
+                    lambda q=q, k=k, v=v, m=mask: sdpa(
+                        q[:, :, None], k, v, attn_mask=m,
+                        enable_gqa=True)[:, :, 0],
+                    ntok * KH * q.shape[2] * 2 * 2 + 2 * q.numel() * 2
+                    + q.shape[0] * 4, 4 * ntok * q.shape[1] * q.shape[2])
+                ns, split_len = DA.plan_for(q, k)
+                row.update(B=B, S=S, lens=lens.tolist(), n_splits=ns,
+                           split_len=split_len)
+            rows.setdefault(kind, []).append((B, n, row))
+    return rows
+
+
+def mistral_phase(torch, DA, PA, cfg, zoo, Engine, EngineConfig, Request,
+                  gen_workload):
+    """Serve mistral-7b once on the automatic plane (paged fused: the
+    engine removes the window, as the reference's does) and once with
+    paged=False; the split-K decode kernel serves the dense plane's
+    decode, the paged kernel the paged plane's. Each kernel is then held
+    against its plain version on every input its plane gave it."""
+    check(cfg.n_layers == 32 and cfg.d_model == 4096 and cfg.n_heads == 32
+          and cfg.n_kv_heads == 8 and cfg.head_dim == 128
+          and cfg.d_ff == 14336 and cfg.vocab_size == 32000
+          and cfg.sliding_window == 4096 and cfg.dtype == "bfloat16",
+          "mistral-7b is not at full width")
+    from repro_torch.serving.kv_offload import tree_leaves
+    t0 = time.perf_counter()
+    params = zoo.build(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    out = dict(init_s=time.perf_counter() - t0,
+               param_gib=sum(t.numel() * t.element_size()
+                             for _, t in tree_leaves(params)) / 2 ** 30)
+    outputs = {}
+    served = {"decode": [], "paged": []}
+    for plane, paged in (("auto", None), ("dense", False)):
+        eng = Engine(cfg, params, EngineConfig(**MISTRAL_ECONF, paged=paged),
+                     device="cuda")
+        reqs = mistral_requests(Request, gen_workload, cfg.vocab_size)
+        check(len(set(r.tokens for r in reqs)) == len(reqs),
+              "mistral requests are not distinct")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        DA.decode_attention.launches = PA.paged_decode_attention.launches = 0
+        with tap_decode_kernels(torch, cfg.n_layers, served):
+            t0 = time.perf_counter()
+            steps = serve_waves(eng, reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        split_k = DA.decode_attention.launches
+        paged_l = PA.paged_decode_attention.launches
+        name = f"mistral {plane}"
+        check_outputs(name, reqs, cfg.vocab_size)
+        st = eng.stats
+        check(st["reused_tokens"] > 0, f"{name}: no prefix reuse")
+        if eng.paged:
+            check(split_k == 0, f"{name}: split-K decode launched {split_k} "
+                  "times on the paged plane")
+            check(paged_l > 0 and paged_l == cfg.n_layers
+                  * st["model_dispatches"],
+                  f"{name}: paged kernel launches {paged_l} != "
+                  f"{cfg.n_layers} x {st['model_dispatches']} dispatches")
+        else:
+            check(paged_l == 0, f"{name}: paged kernel launched {paged_l} "
+                  "times on the dense plane")
+            check(split_k > 0 and split_k == cfg.n_layers
+                  * st["decode_batches"],
+                  f"{name}: split-K decode launches {split_k} != "
+                  f"{cfg.n_layers} x {st['decode_batches']} decode batches")
+        reused, prefilled = st["reused_tokens"], st["prefilled_tokens"]
+        out[plane] = dict(
+            paged=eng.paged, steps=steps, model_dispatches=st[
+                "model_dispatches"], decode_batches=st["decode_batches"],
+            cache_concat_calls=st["cache_concat_calls"],
+            reused_tokens=reused, prefilled_tokens=prefilled,
+            reuse_share=reused / (reused + prefilled), wall_s=wall,
+            steps_per_s=steps / wall,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            paged_decode_launches=paged_l, split_k_decode_launches=split_k)
+        outputs[plane] = [list(r.output_tokens) for r in reqs]
+        del eng
+    # bf16 with two reduction orders: reported, not gated
+    out.update(agreement(outputs))
+    out["request0_tokens"] = {k: v[0] for k, v in outputs.items()}
+    out["dense_profile"] = dense_profile(torch, cfg, params, Engine,
+                                         EngineConfig, Request, gen_workload)
+    print("mistral: " + json.dumps(out))
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    out["served"] = served_shapes(torch, DA, PA, flush, served, "mistral-7b")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def agreement(outputs):
+    """Shares of output tokens, and of first output tokens, on which the
+    paged and dense runs agree."""
+    pairs = [(a, b) for x, y in zip(outputs["auto"], outputs["dense"])
+             for a, b in zip(x, y)]
+    firsts = [x[0] == y[0] for x, y in zip(outputs["auto"],
+                                           outputs["dense"])]
+    return dict(token_agreement=sum(a == b for a, b in pairs) / len(pairs),
+                first_token_agreement=sum(firsts) / len(firsts))
+
+
+def device_kernels(torch, prof):
+    """(self device us, calls, name) of every device kernel in a
+    torch.profiler trace, costliest first."""
+    from torch.autograd import DeviceType
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        kernels.append((us, e.count, e.key))
+    return sorted(kernels, reverse=True)
+
+
+def dense_profile(torch, cfg, params, Engine, EngineConfig, Request,
+                  gen_workload):
+    """The dense run again under torch.profiler (device activity only):
+    device busy share of the wall, and the device time of the split-K
+    decode kernel (split kernel + its merge; the paged kernel, the only
+    other user of the merge, does not run on this plane) and of the
+    cache concatenations. Instrumentation only: the phase's wall is the
+    unprofiled run's."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = Engine(cfg, params, EngineConfig(**MISTRAL_ECONF, paged=False),
+                 device="cuda")
+    reqs = mistral_requests(Request, gen_workload, cfg.vocab_size)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve_waves(eng, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = device_kernels(torch, prof)
+    busy_ms = sum(k[0] for k in kernels) / 1e3
+    if busy_ms == 0.0:
+        return "not measured (the profiler recorded no device time)"
+
+    def ms(*names):
+        return sum(k[0] for k in kernels
+                   if any(n in k[2] for n in names)) / 1e3
+    split_ms = ms("dense_split_kernel", "lse_merge_kernel")
+    cat_ms = ms("CatArrayBatchedCopy")
+    return dict(profiled_wall_s=wall, device_busy_ms=busy_ms,
+                device_busy_share=busy_ms / (wall * 1e3),
+                split_k_decode_ms=split_ms,
+                split_k_decode_share_of_busy=split_ms / busy_ms,
+                split_k_decode_share_of_wall=split_ms / (wall * 1e3),
+                concat_ms=cat_ms, concat_share_of_busy=cat_ms / busy_ms,
+                top=[dict(kernel=k[2][:60], ms=k[0] / 1e3, calls=k[1])
+                     for k in kernels[:6]])
+
+
 def profile_phase(torch, PA, serve):
     """Where the time goes: a second, smaller full-width serve (4
     requests) with torch.profiler (device activity only, to keep the
@@ -990,7 +1319,6 @@ def profile_phase(torch, PA, serve):
     (kernel time / profiled wall), kernel launches per engine step and
     the kernels that take the most device time. Instrumentation only:
     nothing here is the main path's measurement."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     args = serve.parse_args(SERVE_ARGS[:5] + ["4"] + SERVE_ARGS[6:])
     res = serve.setup(args)
@@ -1005,19 +1333,12 @@ def profile_phase(torch, PA, serve):
         wall = time.perf_counter() - t0
     check(len(done) == 4, "profiled serve did not finish")
     steps = sum(e.stats["iterations"] for e in cl.engines.values())
-    kernels = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        kernels.append((us, e.count, e.key))
+    kernels = device_kernels(torch, prof)
     busy_ms = sum(k[0] for k in kernels) / 1e3
     if busy_ms == 0.0:
         print("profile: the profiler recorded no device time "
               "(device busy share not measured)")
         return
-    kernels.sort(reverse=True)
     # the paged decode kernel and, on this path, the merge of its splits
     # (no other kernel of the serve path launches lse_merge_kernel)
     paged = [k for k in kernels if "paged_split_kernel" in k[2]]
@@ -1040,12 +1361,48 @@ def profile_phase(torch, PA, serve):
     print("profile: " + json.dumps(out))
 
 
-def reference_phase(torch, configs, bridge, Engine, EngineConfig, Request):
+def reference_phase(torch, configs, bridge, zoo, Engine, EngineConfig,
+                    Request):
     """The engine on the card against the same engine on the CPU, small
-    float32 config, same parameters and stream: token-identical."""
+    float32 configs, same parameters and stream, token-identical: reduced
+    smollm-360m on the paged plane and on the dense one, reduced
+    mistral-7b on the dense one (its decode: the split-K kernel at G 2,
+    D 16); then zoo.prefill and 8 zoo.decode steps of reduced raw
+    mistral-7b (window 16) past the window, its ring cache wrapping."""
     import dataclasses
-    cfg = dataclasses.replace(configs.reduced(configs.ARCHS["smollm-360m"]),
-                              n_layers=2, dtype="float32")
+    for arch, paged in (("smollm-360m", None), ("smollm-360m", False),
+                        ("mistral-7b", False)):
+        cfg = dataclasses.replace(configs.reduced(configs.ARCHS[arch]),
+                                  n_layers=2, dtype="float32")
+        engine_card_vs_cpu(torch, bridge, cfg, paged, Engine, EngineConfig,
+                           Request)
+    cfg = dataclasses.replace(configs.reduced(configs.ARCHS["mistral-7b"]),
+                              dtype="float32")
+    api = zoo.build(cfg)
+    params = bridge.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(1, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(2))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = bridge.tree_to(params, dev)
+        nxt, cache = api.prefill(p, {"tokens": toks.to(dev)})
+        check(cache["p0"]["k"].shape[2] == cfg.sliding_window == 16,
+              f"raw mistral cache {tuple(cache['p0']['k'].shape)} is not "
+              "a ring of the window")
+        seq = [nxt.tolist()]
+        for i in range(8):
+            nxt, cache = api.decode(p, cache, {"tokens": nxt, "pos": 40 + i})
+            seq.append(nxt.tolist())
+        outs[dev] = seq
+    check(outs["cuda"] == outs["cpu"],
+          f"raw mistral prefill+decode: card {outs['cuda']} vs CPU "
+          f"{outs['cpu']}")
+    print("reference: reduced raw mistral-7b (window 16) prefill + 8 "
+          "decode steps past the window on the card == on the CPU")
+
+
+def engine_card_vs_cpu(torch, bridge, cfg, paged, Engine, EngineConfig,
+                       Request):
     params = bridge.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     gen = torch.Generator().manual_seed(1)
     shared = torch.randint(1, cfg.vocab_size, (29,), generator=gen).tolist()
@@ -1056,7 +1413,7 @@ def reference_phase(torch, configs, bridge, Engine, EngineConfig, Request):
     for dev in ("cpu", "cuda"):
         eng = Engine(cfg, params, EngineConfig(
             max_context=64, chunk_size=16, max_batch_tokens=64,
-            capacity_tokens=4096, page_size=16), device=dev)
+            capacity_tokens=4096, page_size=16, paged=paged), device=dev)
         reqs = [Request(tokens=p, max_new_tokens=4) for p in prompts]
         now, done = 0.0, []
         for r in reqs[:2]:
@@ -1071,11 +1428,14 @@ def reference_phase(torch, configs, bridge, Engine, EngineConfig, Request):
             now += 0.01
         eng.pool.check_invariants()
         check(eng.stats["reused_tokens"] > 0, f"{dev}: no reuse")
+        check(eng.paged == (paged is None), f"{dev}: wrong data plane")
         outs[dev] = [list(r.output_tokens) for r in reqs]
+    plane = "paged" if paged is None else "dense"
     check(outs["cuda"] == outs["cpu"],
-          f"card and CPU engines disagree: {outs['cuda']} vs {outs['cpu']}")
-    print(f"reference: reduced float32 engine on the card == on the CPU, "
-          f"{len(prompts)} requests token-identical")
+          f"{cfg.name} {plane}: card and CPU engines disagree: "
+          f"{outs['cuda']} vs {outs['cpu']}")
+    print(f"reference: reduced float32 {cfg.name} engine, {plane} plane, on "
+          f"the card == on the CPU, {len(prompts)} requests token-identical")
 
 
 def main() -> None:
@@ -1119,9 +1479,6 @@ def main() -> None:
     t0 = time.perf_counter()
     lib_launches, lib_rows = library_phase(torch, bench, DA, PF, FA)
     print(f"library: phase took {time.perf_counter() - t0:.1f}s")
-    print("check: bf16 kernel vs plain, largest share of the bound used "
-          f"(bound 2^-7 |plain| + 2^-6 rms of the plain row): "
-          + ", ".join(f"{k} {u:.4f}" for k, u in BOUND_USE.items()))
     launches = serve_phase(torch, PA, serve)
     cfg = configs.get_config("smollm-360m")
     params = zoo.build(cfg).init(
@@ -1134,10 +1491,23 @@ def main() -> None:
               Request, *extra)
         print(f"{name}: phase took {time.perf_counter() - t0:.1f}s")
     del params
-    reference_phase(torch, configs, bridge, Engine, EngineConfig, Request)
+    t0 = time.perf_counter()
+    mistral = mistral_phase(torch, DA, PA, configs.get_config("mistral-7b"),
+                            zoo, Engine, EngineConfig, Request, gen_workload)
+    gc.collect()                    # the engines' split hooks hold cycles
+    torch.cuda.empty_cache()        # hand the 14.5 GB of weights back
+    print(f"mistral: phase took {time.perf_counter() - t0:.1f}s; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
+          "allocated after it")
+    reference_phase(torch, configs, bridge, zoo, Engine, EngineConfig,
+                    Request)
     profile_phase(torch, PA, serve)
+    print("check: bf16 kernel vs plain, largest share of the bound used "
+          f"(bound 2^-7 |plain| + 2^-6 rms of the plain row): "
+          + ", ".join(f"{k} {u:.4f}" for k, u in BOUND_USE.items()))
 
-    main_row = next(r for r in rows if r["B"] == 8 and r["P"] == 128)
+    main_row = next(r for r in rows if r["B"] == 8 and r["P"] == 128
+                    and r["width"] == "smollm-360m")
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1146,15 +1516,21 @@ def main() -> None:
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"]}]
-    # the new kernels at full smollm-360m width (the served model's heads)
-    for kind, name, src, tpu in (
+    # split-K decode: the dense plane's launches in the mistral phase and
+    # its served lane count with the most dispatches (the wider on a tie);
+    # prefix and flash: the library's launches and full smollm-360m width
+    serve_row = max(mistral["served"]["decode"],
+                    key=lambda r: (r[1], r[0]))[2]
+    lib_launches["decode"] = mistral["dense"]["split_k_decode_launches"]
+    for kind, name, src, tpu, r in (
             ("decode", "decode_attention", "decode_attention.cu",
-             "src/repro/kernels/decode_attention.py:56"),
+             "src/repro/kernels/decode_attention.py:56", serve_row),
             ("prefix", "prefix_partial", "prefix_attention.cu",
-             "src/repro/kernels/prefix_attention.py:74"),
+             "src/repro/kernels/prefix_attention.py:74",
+             lib_rows["prefix"][0]),
             ("flash", "flash_attention", "flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:90")):
-        r = lib_rows[kind][0]
+             "src/repro/kernels/flash_attention.py:90",
+             lib_rows["flash"][0])):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",

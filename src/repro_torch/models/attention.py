@@ -1,34 +1,187 @@
-"""Attention on the paged serving path (counterpart of the JAX package's
+"""Attention forms of the model math (counterpart of the JAX package's
 ``models/attention.py``).
+
+  naive      — materializes [Sq, Skv] scores; short sequences.
+  blockwise  — flash-style online softmax, a loop over KV blocks; score
+               memory O(Sq * kv_block).
+  banded     — sliding-window attention as a diagonal-band loop: at step
+               o every q block attends kv block (qi - o), gathered by
+               index; FLOPs ~ S * (window + block).
+  decode / extend / paged / mixed paged — the serving forms.
 
 All functions take the JAX package's layouts: q [B, Sq, H, D], k/v
 [B, Skv, KH, D] for the dense forms, the page pool [n_pages, PS, KH, D]
-for the paged ones, with GQA group G = H // KH.
+for the paged ones, with GQA group G = H // KH. Scores are float32 and
+masked with NEG_INF, as in the reference.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from ..kernels.decode_attention import decode_attention as _split_k_decode
 from ..kernels.paged_attention import paged_decode_attention
 
 NEG_INF = -1e30
 
 
-def decode_attention(q, k_cache, v_cache, cache_len):
-    """Single-position decode: q [B, H, D] against cache [B, S, KH, D].
-    ``cache_len`` is an int or a [B] tensor of valid lengths."""
+def naive_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0,
+                    kv_len: Optional[torch.Tensor] = None):
+    B, Sq, H, D = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, KH, H // KH, D)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                          k.float()) * (D ** -0.5)
+    dev = q.device
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+    k_pos = torch.arange(Skv, device=dev)
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
+    if window:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    if kv_len is not None:
+        mask = mask[None] & (k_pos[None, None, :]
+                             < kv_len.to(dev)[:, None, None])
+        scores = torch.where(mask[:, None, None], scores, NEG_INF)
+    else:
+        scores = torch.where(mask[None, None, None], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w, v.float())
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def _online_softmax_step(m, l, acc, s, vj, pv_eq, q_dtype):
+    """One block of the reference's online softmax: s are the block's
+    masked f32 scores, vj its values; returns the new (m, l, acc)."""
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    # fully masked rows (m_new == NEG_INF) must not turn into NaNs
+    m_safe = torch.clamp(m_new, min=-1e29)
+    p = torch.exp(s - m_safe[..., None])
+    corr = torch.exp(m - m_safe)
+    l_new = l * corr + p.sum(dim=-1)
+    pv = torch.einsum(pv_eq, p.to(q_dtype), vj).float()
+    return m_new, l_new, acc * corr[..., None] + pv
+
+
+def blockwise_attention(q, k, v, *, causal: bool = True,
+                        q_block: int = 512, kv_block: int = 1024,
+                        window: int = 0, q_offset: int = 0):
+    """Flash-style attention: a loop over KV blocks with an online
+    softmax (the reference scans them). GQA repeats the KV heads up to H,
+    as the reference does. ``q_block`` is unused, as in the reference."""
+    B, Sq, H, D = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    if Skv % kv_block:
+        pad = kv_block - Skv % kv_block
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    nkv = k.shape[1] // kv_block
+    scale = D ** -0.5
+    dev = q.device
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+    m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=dev)
+    for j in range(nkv):
+        kj = k[:, j * kv_block:(j + 1) * kv_block]
+        vj = v[:, j * kv_block:(j + 1) * kv_block]
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kj).float() * scale
+        k_pos = j * kv_block + torch.arange(kv_block, device=dev)
+        mask = (k_pos < Skv)[None, :].expand(Sq, kv_block)
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        if window:
+            mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+        s = torch.where(mask[None, None], s, NEG_INF)
+        m, l, acc = _online_softmax_step(m, l, acc, s, vj,
+                                         "bhqk,bkhd->bhqd", q.dtype)
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def banded_attention(q, k, v, *, window: int, q_block: int = 1024,
+                     q_offset: int = 0):
+    """Sliding-window causal attention as a diagonal-band loop: q is split
+    into blocks, and at step o every q block qi attends kv block
+    (qi - o). Steps: min(window // block + 2, blocks). Needs q and kv
+    aligned (Sq == Skv, q_offset 0): the prefill case."""
+    B, S, H, D = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    if k.shape[1] != S or q_offset != 0:
+        raise ValueError("banded attention needs aligned q/kv")
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    blk = min(q_block, S)
+    if S % blk:
+        raise ValueError(f"seq {S} not divisible by block {blk}")
+    nb = S // blk
+    qb = q.reshape(B, nb, blk, H, D)
+    kb = k.reshape(B, nb, blk, H, D)
+    vb = v.reshape(B, nb, blk, H, D)
+    scale = D ** -0.5
+    dev = q.device
+    n_steps = min(window // blk + 2, nb)
+    blocks = torch.arange(nb, device=dev)
+    pos_in = torch.arange(blk, device=dev)
+    q_pos = blocks[:, None] * blk + pos_in[None, :]              # [nb, blk]
+    m = torch.full((B, nb, H, blk), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((B, nb, H, blk), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, nb, H, blk, D), dtype=torch.float32, device=dev)
+    for o in range(n_steps):
+        idx = torch.clamp(blocks - o, min=0)         # kv block per q block
+        kj = kb.index_select(1, idx)                 # [B, nb, blk, H, D]
+        vj = vb.index_select(1, idx)
+        s = torch.einsum("bnqhd,bnkhd->bnhqk", qb, kj).float() * scale
+        k_pos = idx[:, None] * blk + pos_in[None, :]             # [nb, blk]
+        mask = k_pos[:, None, :] <= q_pos[:, :, None]
+        mask &= k_pos[:, None, :] > q_pos[:, :, None] - window
+        mask &= (blocks - o >= 0)[:, None, None]
+        s = torch.where(mask[None, :, None], s, NEG_INF)
+        m, l, acc = _online_softmax_step(m, l, acc, s, vj,
+                                         "bnhqk,bnkhd->bnhqd", q.dtype)
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.permute(0, 1, 3, 2, 4).reshape(B, S, H, D).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
+    """Single-position decode: q [B, H, D] against caches [B, S, KH, D];
+    ``cache_len`` an int or a [B] tensor of valid lengths (the query sits
+    at position cache_len - 1).
+
+    Every call without a window narrower than the cache reaches the
+    split-K decode kernel (``kernels/decode_attention.py``): the dense
+    plane's ``layers.attn_step`` is such a call, since its ring buffer
+    needs only ``cache_len``. The kernel reads the caches in place
+    through transposed views; on CPU tensors its wrapper takes the plain
+    version. A window narrower than the cache masks [cache_len - window,
+    cache_len), which is not a prefix, so that call runs the reference's
+    plain form."""
     B, H, D = q.shape
     S, KH = k_cache.shape[1], k_cache.shape[2]
-    G = H // KH
-    qg = q.reshape(B, KH, G, D)
+    clen = torch.as_tensor(cache_len, device=q.device)
+    if not window or window >= S:
+        lens = clen.to(torch.int32).expand(B).contiguous()
+        return _split_k_decode(q.contiguous(), k_cache.transpose(1, 2),
+                               v_cache.transpose(1, 2), lens)
+    qg = q.reshape(B, KH, H // KH, D)
     s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache).float() * (D ** -0.5)
     k_pos = torch.arange(S, device=q.device)
-    clen = torch.as_tensor(cache_len, device=q.device)
     if clen.dim() == 0:
-        mask = (k_pos < clen)[None, None, None, :]
+        mask = ((k_pos < clen) & (k_pos >= clen - window))[None, None, None]
     else:
-        mask = (k_pos[None, :] < clen[:, None])[:, None, None, :]
+        mask = ((k_pos[None, :] < clen[:, None])
+                & (k_pos[None, :] >= clen[:, None] - window))[:, None, None]
     s = torch.where(mask, s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", w.to(q.dtype), v_cache)
@@ -66,12 +219,13 @@ def mixed_paged_attention(qc, qd, k_pages, v_pages, chunk_table,
     return oc, od
 
 
-def extend_attention(q, k_cache, v_cache, start, kv_len):
+def extend_attention(q, k_cache, v_cache, start, kv_len, *, window: int = 0):
     """Chunked-prefill attention: q [B, C, H, D] (first token at absolute
     position ``start``) against caches [B, S, KH, D] that already hold
     the chunk's KV; ``kv_len`` = start + C. ``start``/``kv_len`` are
-    ints or [B] tensors. Materializes [B, H, C, S] scores (short engine
-    chunks only)."""
+    ints or [B] tensors. A window lets a query see only the keys in
+    (q_pos - window, q_pos]. Materializes [B, H, C, S] scores (short
+    engine chunks only)."""
     B, C, H, D = q.shape
     S, KH = k_cache.shape[1], k_cache.shape[2]
     G = H // KH
@@ -86,8 +240,39 @@ def extend_attention(q, k_cache, v_cache, start, kv_len):
         kv_len = kv_len.expand(B)
     q_pos = start[:, None] + torch.arange(C, device=q.device)[None, :]
     k_pos = torch.arange(S, device=q.device)[None, None, :]
-    mask = (k_pos <= q_pos[..., None]) & (k_pos < kv_len[:, None, None])
+    mask = k_pos <= q_pos[..., None]
+    if window:
+        mask &= k_pos > q_pos[..., None] - window
+    mask &= k_pos < kv_len[:, None, None]
     s = torch.where(mask[:, None, None], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", w, v_cache.float())
     return out.reshape(B, C, H, D).to(q.dtype)
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0,
+              q_offset: int = 0, impl: str = "auto", q_block: int = 512,
+              kv_block: int = 1024):
+    """Backend dispatch. 'auto': naive up to 1024 positions, banded for a
+    square sliding-window call whose length the q block divides,
+    blockwise otherwise."""
+    S = max(q.shape[1], k.shape[1])
+    if impl == "auto":
+        if S <= 1024:
+            impl = "naive"
+        elif window and q.shape[1] == k.shape[1] and q_offset == 0 \
+                and q.shape[1] % min(q_block, q.shape[1]) == 0:
+            impl = "banded"
+        else:
+            impl = "blockwise"
+    if impl == "naive":
+        return naive_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
+    if impl == "banded":
+        return banded_attention(q, k, v, window=window, q_block=q_block,
+                                q_offset=q_offset)
+    if impl == "blockwise":
+        return blockwise_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, q_block=q_block,
+                                   kv_block=min(kv_block, k.shape[1]))
+    raise ValueError(f"unknown attention impl {impl!r}")

@@ -1,12 +1,15 @@
-"""Layer forwards of the paged serving path (counterpart of the JAX
-package's ``models/layers.py``).
+"""Layer forwards (counterpart of the JAX package's ``models/layers.py``):
+the dense forms (full sequence, one-token step against a per-request
+cache, chunk extension) and the paged serving forms.
 
-Shapes follow the JAX package: x is [B, d] for one-token steps and
-[B, C, d] for chunks; projection weights are head-factored ([d, H, Dh],
-[H, Dh, d]). The KV page pool {"k","v": [n_pages, PS, KH, D]} is updated
-IN PLACE with ``index_put_`` where the JAX code writes a new pool with
-``.at[].set`` and donates the old buffer: the functions return the same
-dict they were given, already holding this step's KV.
+Shapes follow the JAX package: x is [B, S, d] for full sequences, [B, d]
+for one-token steps and [B, C, d] for chunks; projection weights are
+head-factored ([d, H, Dh], [H, Dh, d]). Caches — the dense
+{"k","v": [B, S, KH, D]} and the KV page pool {"k","v": [n_pages, PS,
+KH, D]} — are updated IN PLACE with ``index_put_`` where the JAX code
+writes a new buffer with ``.at[].set`` / ``dynamic_update_slice`` and
+donates the old one: the functions return the same dict they were
+given, already holding this step's KV.
 
 Page-table lookups clamp the page index to the table's width, as JAX's
 gathers clamp out-of-range indices; every such lookup is for a padded
@@ -21,8 +24,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from .attention import extend_attention, mixed_paged_attention, \
-    paged_attention
+from .attention import attention, decode_attention, extend_attention, \
+    mixed_paged_attention, paged_attention
 from .common import rope
 
 Pages = Dict[str, torch.Tensor]
@@ -35,6 +38,92 @@ def _project_qkv(p, cfg, x):
     return q, k, v
 
 
+def _on(v, device) -> torch.Tensor:
+    """An int or a tensor as a tensor on ``device``; an int is filled in
+    there, with no host-to-device copy (which would wait for the
+    device at every layer)."""
+    if isinstance(v, int):
+        return torch.full((), v, device=device)
+    return torch.as_tensor(v, device=device)
+
+
+def attn_full(p, cfg, x, *, causal: bool = True, positions=None,
+              window: int = 0, impl: str = "auto",
+              return_cache: bool = True):
+    """Full-sequence self-attention: x [B, S, d]. Returns (y, {"k","v"}
+    [B, S, KH, D] | None)."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    if not cfg.attention_free and cfg.rope_theta:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    o = attention(q, k, v, causal=causal, window=window, impl=impl)
+    y = torch.einsum("...hk,hkd->...d", o, p["wo"])
+    return y, ({"k": k, "v": v} if return_cache else None)
+
+
+def attn_step(p, cfg, x, cache, pos, *, window: int = 0):
+    """Decode one token per lane: x [B, d]; cache {"k","v"} [B, S, KH, D]
+    (S == window for a ring buffer); ``pos`` the context length so far,
+    an int or a [B] tensor. The new KV lands at ring slot pos % S, and
+    attention masks to cache_len = min(pos + 1, S, window): once the
+    ring has wrapped every slot holds a token inside the window, so the
+    length alone masks it, and the call reaches the split-K decode kernel
+    (``attention.decode_attention``). Returns (y [B, d], cache)."""
+    B = x.shape[0]
+    S = cache["k"].shape[1]
+    q, k, v = _project_qkv(p, cfg, x)
+    pos = _on(pos, x.device)
+    posb = pos.expand(B)
+    if cfg.rope_theta:
+        q = rope(q[:, None], posb[:, None], cfg.rope_theta)[:, 0]
+        k = rope(k[:, None], posb[:, None], cfg.rope_theta)[:, 0]
+    _write_kv(cache, torch.arange(B, device=x.device), posb % S, k, v)
+    cache_len = torch.clamp(pos + 1, max=S)
+    if window and window < S:
+        cache_len = torch.clamp(pos + 1, max=window)
+    o = decode_attention(q, cache["k"], cache["v"], cache_len)
+    y = torch.einsum("bhk,hkd->bd", o, p["wo"])
+    return y, cache
+
+
+def _linear_end(start, C: int) -> int:
+    """The end of a chunk's linear write: the largest start + C (an int
+    ``start`` costs no device read)."""
+    if isinstance(start, int):
+        return start + C
+    return int(torch.as_tensor(start).max()) + C
+
+
+def attn_extend(p, cfg, x, cache, start, *, window: int = 0):
+    """Chunked-prefill extension: x [B, C, d] new tokens from absolute
+    position ``start`` (an int or a [B] tensor) against a linear (not
+    ring) cache {"k","v"} [B, S, KH, D] whose first ``start`` positions
+    are valid. A write past the cache's end raises ValueError (the
+    reference's ``dynamic_update_slice`` would move it back into range).
+    Returns (y [B, C, d], cache)."""
+    B, C, _ = x.shape
+    S = cache["k"].shape[1]
+    if _linear_end(start, C) > S:
+        raise ValueError(f"extend: positions up to {_linear_end(start, C)} "
+                         f"do not fit a {S}-position cache")
+    q, k, v = _project_qkv(p, cfg, x)
+    startt = _on(start, x.device)
+    positions = (startt.reshape(-1, 1)
+                 + torch.arange(C, device=x.device)[None, :])  # [B|1, C]
+    if cfg.rope_theta:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    _write_kv(cache, torch.arange(B, device=x.device)[:, None],
+              positions.expand(B, C), k, v)
+    o = extend_attention(q, cache["k"], cache["v"], startt, startt + C,
+                         window=window)
+    y = torch.einsum("...hk,hkd->...d", o, p["wo"])
+    return y, cache
+
+
 def _table_lookup(table, rows, pos, page_size):
     """table[rows, pos // page_size] with the page index clamped to the
     table's width (JAX gather semantics)."""
@@ -44,7 +133,8 @@ def _table_lookup(table, rows, pos, page_size):
 
 
 def _write_kv(pages: Pages, pids, offs, k, v) -> None:
-    """Scatter new K/V rows into the pool in place."""
+    """Scatter new K/V rows into a pool (pids: pages) or a dense cache
+    (pids: batch lanes) in place."""
     idx = (pids.long(), offs.long())
     pages["k"].index_put_(idx, k.to(pages["k"].dtype))
     pages["v"].index_put_(idx, v.to(pages["v"].dtype))

@@ -1,16 +1,23 @@
-"""The paged decoder stack (counterpart of the JAX package's
-``models/transformer.py``, paged serving entry points only).
+"""The decoder stack (counterpart of the JAX package's
+``models/transformer.py``) for attention mixers with SwiGLU FFNs: the
+dense entry points (full sequence, one-token step, chunk extension, with
+sliding windows) and the paged serving ones.
 
 Parameters mirror the JAX tree: ``{"p{j}": leaves stacked over
 [n_groups, ...]}`` for the per-group layer plan; group g's weights are
-the views ``a[g]``. The KV pool is ``{"p{j}": {"g{g}": {"k","v"}}}``,
-one [n_pages, PS, KH, D] pair per physical layer, updated in place.
+the views ``a[g]``, and the reference's scan over groups is a loop. The
+dense cache is ``{"p{j}": {"k","v": [G, B, S_c, KH, D]}}`` (S_c the
+window for a sliding-window stack: a ring buffer), the KV pool
+``{"p{j}": {"g{g}": {"k","v"}}}``, one [n_pages, PS, KH, D] pair per
+physical layer. Both are updated in place. Recurrent (rwkv, mamba),
+cross-attention and MoE positions are not ported and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, List, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,6 +47,45 @@ def layer_plan(cfg) -> List[PosPlan]:
         cross = cfg.is_cross_attn_layer(j)
         plan.append(PosPlan(mixer, ffn, cross, cfg.sliding_window))
     return plan
+
+
+class CacheSpec(NamedTuple):
+    """Shape and dtype of one cache leaf (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def _check_ported(pos: PosPlan) -> None:
+    if pos.mixer != "attn" or pos.cross or pos.ffn != "mlp":
+        raise NotImplementedError(
+            f"layer position {pos}: only attention mixers with SwiGLU "
+            "FFNs are ported")
+
+
+def cache_specs(cfg, batch: int, seq: int) -> Pytree:
+    """The decode cache for (batch, seq) context: attention positions
+    hold [G, B, S_c, KH, D] with S_c = min(seq, window or seq)."""
+    dt = getattr(torch, cfg.dtype)
+    out = {}
+    for j, pos in enumerate(layer_plan(cfg)):
+        _check_ported(pos)
+        S_c = min(seq, pos.window) if pos.window else seq
+        s = CacheSpec((cfg.n_groups, batch, S_c, cfg.n_kv_heads,
+                       cfg.head_dim), dt)
+        out[f"p{j}"] = {"k": s, "v": s}
+    return out
+
+
+def cache_bytes(cfg, batch: int, seq: int) -> int:
+    total = 0
+    for c in cache_specs(cfg, batch, seq).values():
+        for s in c.values():
+            n = s.dtype.itemsize
+            for d in s.shape:
+                n *= d
+            total += n
+    return total
 
 
 def paged_servable(cfg) -> bool:
@@ -86,7 +132,8 @@ def _mlp_step(pf, x_dtype, h):
 
 def _ffn_step_tail(p, cfg, pos: PosPlan, x):
     """norm2 + SwiGLU FFN after the mixer residual, single-token lanes
-    (MoE FFNs are not ported: ``zoo.build`` rejects them)."""
+    (MoE FFNs are not ported: ``zoo.build`` rejects them) — shared by the
+    dense and paged step paths."""
     h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
     return x + _mlp_step(p["ffn"], x.dtype, h2)
 
@@ -96,6 +143,111 @@ def _ffn_extend_tail(p, cfg, pos: PosPlan, x):
     h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
     return x + L.mlp_full(p["ffn"], cfg, h2)
 
+
+# ---------------------------------------------------------------------
+# dense forwards: full sequence, one-token step, chunk extension
+# ---------------------------------------------------------------------
+
+def _ring(a: torch.Tensor, W: int) -> torch.Tensor:
+    """The last W positions of a [B, S, KH, D] cache, ring-aligned:
+    token t lands at slot t % W."""
+    S = a.shape[1]
+    return torch.roll(a[:, S - W:], (S - W) % W, dims=1)
+
+
+def _pos_full(p, cfg, pos: PosPlan, x, want_cache: bool, attn_impl: str,
+              causal: bool = True):
+    """One layer position, full sequence. Returns (x, {"k","v"} | {})."""
+    _check_ported(pos)
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    y, kv = L.attn_full(p["attn"], cfg, h, causal=causal,
+                        window=pos.window, impl=attn_impl,
+                        return_cache=want_cache)
+    cache: Dict[str, torch.Tensor] = {}
+    if want_cache:
+        W = pos.window
+        if W and W < kv["k"].shape[1]:
+            kv = {n: _ring(a, W) for n, a in kv.items()}
+        cache = kv
+    if cfg.parallel_block:
+        return x + y + L.mlp_full(p["ffn"], cfg, h), cache
+    return _ffn_extend_tail(p, cfg, pos, x + y), cache
+
+
+def forward_full(params, cfg, x, *, want_cache: bool = False,
+                 attn_impl: str = "auto", causal: bool = True
+                 ) -> Tuple[torch.Tensor, Optional[Pytree]]:
+    """x: [B, S, d] embedded inputs -> (hidden [B, S, d], cache | None);
+    the cache's leaves are stacked over groups ([G, B, S_c, KH, D])."""
+    plan = layer_plan(cfg)
+    caches: Dict[str, List[Dict[str, torch.Tensor]]] = {
+        f"p{j}": [] for j in range(len(plan))}
+    for g in range(cfg.n_groups):
+        for j, pos in enumerate(plan):
+            x, c = _pos_full(_group(params[f"p{j}"], g), cfg, pos, x,
+                             want_cache, attn_impl, causal)
+            caches[f"p{j}"].append(c)
+    if not want_cache:
+        return x, None
+    return x, {pj: {n: torch.stack([c[n] for c in cs]) for n in ("k", "v")}
+               for pj, cs in caches.items()}
+
+
+def _pos_step(p, cfg, pos: PosPlan, x, cache, position):
+    _check_ported(pos)
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    y, _ = L.attn_step(p["attn"], cfg, h, cache, position, window=pos.window)
+    if cfg.parallel_block:
+        return x + y + _mlp_step(p["ffn"], x.dtype, h)
+    return _ffn_step_tail(p, cfg, pos, x + y)
+
+
+def _group_cache(cache, pj: str, g: int) -> Dict[str, torch.Tensor]:
+    """Group g's {"k","v"} views of a dense cache position."""
+    return {n: cache[pj][n][g] for n in ("k", "v")}
+
+
+def forward_step(params, cfg, x, cache, position
+                 ) -> Tuple[torch.Tensor, Pytree]:
+    """x: [B, d] one embedded token per lane; cache from forward_full /
+    cache_specs, updated in place; ``position`` the context length so
+    far (an int or a [B] tensor). Returns (hidden [B, d], cache)."""
+    plan = layer_plan(cfg)
+    for g in range(cfg.n_groups):
+        for j, pos in enumerate(plan):
+            x = _pos_step(_group(params[f"p{j}"], g), cfg, pos, x,
+                          _group_cache(cache, f"p{j}", g), position)
+    return x, cache
+
+
+def _pos_extend(p, cfg, pos: PosPlan, x, cache, start):
+    """One layer position over a chunk against a linear cache; a sliding
+    window is a mask here (the engine's buffers hold its max context)."""
+    _check_ported(pos)
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    y, _ = L.attn_extend(p["attn"], cfg, h, cache, start, window=pos.window)
+    if cfg.parallel_block:
+        return x + y + L.mlp_full(p["ffn"], cfg, h)
+    return _ffn_extend_tail(p, cfg, pos, x + y)
+
+
+def forward_extend(params, cfg, x, cache, start
+                   ) -> Tuple[torch.Tensor, Pytree]:
+    """Chunked prefill: x [B, C, d] new embedded tokens from absolute
+    position(s) ``start`` (an int or a [B] tensor); the cache's buffers
+    are linear and must hold start + C positions (the engine's hold its
+    max context). Returns (hidden [B, C, d], cache), updated in place."""
+    plan = layer_plan(cfg)
+    for g in range(cfg.n_groups):
+        for j, pos in enumerate(plan):
+            x = _pos_extend(_group(params[f"p{j}"], g), cfg, pos, x,
+                            _group_cache(cache, f"p{j}", g), start)
+    return x, cache
+
+
+# ---------------------------------------------------------------------
+# paged forwards
+# ---------------------------------------------------------------------
 
 def _pos_step_paged(p, cfg, pos: PosPlan, x, pages, page_table, position):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)

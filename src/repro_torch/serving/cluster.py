@@ -3,9 +3,10 @@ of the JAX package's ``serving/cluster.py``).
 
 GlobalScheduler (E2) in front of N Engines, all on one ``device``.
 Virtual time advances per engine iteration. Engines run the paged fused
-data plane. ``check_invariants`` reconciles the layers after any amount
-of rebalancing: pool refcounts, scheduler token accounting, and the
-global scheduler's cached-token gauges.
+data plane, or the dense one with ``EngineConfig(paged=False)``.
+``check_invariants`` reconciles the layers after any amount of
+rebalancing: pool refcounts, scheduler token accounting, and the global
+scheduler's cached-token gauges.
 
 With host KV tiers (``EngineConfig.host_capacity_tokens``) E2 may plan
 a host-to-host migration of a demoted span (``_execute_migration``) or a
@@ -445,8 +446,8 @@ class ClusterRuntime:
     def check_invariants(self) -> None:
         """Cross-layer reconciliation, valid at any point of a run:
 
-        * every alive engine's page pool (and draft pool) passes its
-          refcount/free-list checks, and ("req", id) / ("dr", id)
+        * every alive paged engine's page pool (and draft pool) passes
+          its refcount/free-list checks, and ("req", id) / ("dr", id)
           tables exist only for live requests;
         * scheduler token accounting and every global cached-token
           gauge (device and host) stay non-negative;
@@ -463,21 +464,22 @@ class ClusterRuntime:
                 continue
             if eng.host_store is not None:
                 eng._drain_demotes()   # land in-flight demote copies
-            eng.pool.check_invariants()
-            live_reqs = {("req", rid) for rid in eng.live}
-            req_tables = {k for k in eng.pool.tables
-                          if isinstance(k, tuple) and k[0] == "req"}
-            assert req_tables <= live_reqs, (
-                f"instance {i}: leaked request tables "
-                f"{req_tables - live_reqs}")
-            if eng.draft is not None:
-                eng.draft.pool.check_invariants()
-                dr_tables = {k for k in eng.draft.pool.tables
-                             if isinstance(k, tuple) and k[0] == "dr"}
-                live_dr = {("dr", rid) for rid in eng.live}
-                assert dr_tables <= live_dr, (
-                    f"instance {i}: leaked draft tables "
-                    f"{dr_tables - live_dr}")
+            if eng.paged:
+                eng.pool.check_invariants()
+                live_reqs = {("req", rid) for rid in eng.live}
+                req_tables = {k for k in eng.pool.tables
+                              if isinstance(k, tuple) and k[0] == "req"}
+                assert req_tables <= live_reqs, (
+                    f"instance {i}: leaked request tables "
+                    f"{req_tables - live_reqs}")
+                if eng.draft is not None:
+                    eng.draft.pool.check_invariants()
+                    dr_tables = {k for k in eng.draft.pool.tables
+                                 if isinstance(k, tuple) and k[0] == "dr"}
+                    live_dr = {("dr", rid) for rid in eng.live}
+                    assert dr_tables <= live_dr, (
+                        f"instance {i}: leaked draft tables "
+                        f"{dr_tables - live_dr}")
             assert eng.scheduler.used_tokens >= 0, (
                 f"instance {i}: negative scheduler token accounting")
             if eng.host_store is not None:

@@ -1,16 +1,27 @@
-"""Per-instance continuous-batching engine on the paged fused data plane
-(counterpart of the JAX package's ``serving/engine.py``).
+"""Per-instance continuous-batching engine (counterpart of the JAX
+package's ``serving/engine.py``). Two data planes share the scheduling:
 
-All KV lives in one device-resident page pool per layer
-([n_pages, page_size, KH, D]); requests address it through page tables
-held by ``serving/kv_cache.py::PagedKVPool``. Prefix reuse is ``fork()``
-page aliasing with refcounts + copy-on-write: admission makes no device
-KV copy, except one page copy when the reuse boundary falls mid-page.
-Iterations with prefill work run FUSED: every ready prefill chunk and
-every decode slot packed into one dispatch (``_run_mixed``).
-Pure-decode iterations run the bucketed decode step
-(``_decode_batch_paged``). Radix-tree nodes alias the pool through
-per-node page tables; eviction maps to ``release``.
+  * PAGED (the default for stacks that are paged-servable) — all KV
+    lives in one device-resident page pool per layer
+    ([n_pages, page_size, KH, D]); requests address it through page
+    tables held by ``serving/kv_cache.py::PagedKVPool``. Prefix reuse is
+    ``fork()`` page aliasing with refcounts + copy-on-write: admission
+    makes no device KV copy, except one page copy when the reuse
+    boundary falls mid-page. Iterations with prefill work run FUSED:
+    every ready prefill chunk and every decode slot packed into one
+    dispatch (``_run_mixed``). Pure-decode iterations run the bucketed
+    decode step (``_decode_batch_paged``). Radix-tree nodes alias the
+    pool through per-node page tables; eviction maps to ``release``.
+  * DENSE (``paged=False``, the reference plane) — per-request linear
+    caches at ``max_context``. Cached KV slabs are copied into a new
+    request's cache (``_seed_attn_kv``), prefill chunks run one
+    ``extend`` dispatch each, and batched decode concatenates the live
+    caches, runs one ``decode`` dispatch (whose attention is the split-K
+    decode kernel on a card) and splits them again — the copies the
+    paged plane exists to avoid. A split leaves each request a view of
+    the batch cache; only a later concatenation (a copy) or the request's
+    own chunks ever write, so no write reaches another request's cache.
+    Recurrent stacks and their snapshot reuse are not ported.
 
 With ``host_capacity_tokens > 0`` the pool grows a second tier:
 eviction DEMOTES node KV to host RAM (``serving/kv_offload.py``) instead
@@ -40,8 +51,8 @@ read the pages. Host data crosses in pinned buffers with
 ``non_blocking=True``; the host blocks only where the reference reads
 bytes (a demote's drain, a step's predictions).
 
-Not ported yet (construction raises ``NotImplementedError``): the dense
-plane (``paged=False``) and tensor-parallel instances.
+Not ported yet (construction raises ``NotImplementedError``):
+tensor-parallel instances.
 """
 
 from __future__ import annotations
@@ -85,11 +96,13 @@ class EngineConfig:
     page_size: int = 16
     priority_groups: int = 10
     fcfs: bool = False
-    # None/True: the paged plane (the only one ported); False (the dense
-    # reference plane) raises
+    # None: paged when the stack is paged-servable, dense otherwise;
+    # True forces paged (raises if the stack cannot be paged-served);
+    # False forces the dense reference plane
     paged: Optional[bool] = None
-    # None/True: fused ragged iterations; False: the per-request prefill
-    # loop, kept as the fused plane's comparison baseline
+    # None/True: fused ragged iterations on the paged plane; False: the
+    # per-request prefill loop, kept as the fused plane's comparison
+    # baseline
     fused: Optional[bool] = None
     # host-offload tier budget in tokens. 0 disables the tier (eviction
     # drops KV); >0: eviction demotes node KV to host RAM and a later
@@ -112,10 +125,9 @@ class EngineConfig:
         return self.capacity_tokens * max(self.chips_per_instance, 1)
 
 
-def _check_ported(econf: EngineConfig) -> None:
+def _check_planes(econf: EngineConfig, paged: bool) -> None:
     """The reference's plane checks (ValueError), then the planes the
-    port lacks (NotImplementedError)."""
-    paged = econf.paged is None or econf.paged
+    port lacks (NotImplementedError); ``paged``: the plane chosen."""
     fused = paged and (econf.fused is None or econf.fused)
     if econf.fused and not paged:
         raise ValueError("fused ragged iterations require the paged data "
@@ -129,18 +141,55 @@ def _check_ported(econf: EngineConfig) -> None:
     if econf.speculative is not None and not fused:
         raise ValueError("speculative decoding rides the fused mixed "
                          "dispatch: it requires the paged fused plane")
-    unported = {"paged=False": econf.paged is False,
-                "chips_per_instance>1": econf.chips_per_instance > 1}
-    on = [k for k, v in unported.items() if v]
-    if on:
-        raise NotImplementedError(f"not ported yet: {', '.join(on)}")
+    if econf.chips_per_instance > 1:
+        if not paged:
+            raise ValueError("tensor-parallel serving (chips_per_instance "
+                             "> 1) requires the paged data plane")
+        raise NotImplementedError("not ported yet: chips_per_instance>1")
+
+
+def _cache_zeros(specs: Pytree, device) -> Pytree:
+    return {pj: {n: torch.zeros(s.shape, dtype=s.dtype, device=device)
+                 for n, s in c.items()} for pj, c in specs.items()}
+
+
+def _cache_concat(caches: List[Pytree]) -> Pytree:
+    """The batch cache: the requests' [G, 1, S, KH, D] leaves joined on
+    the batch axis (a copy)."""
+    return {pj: {n: torch.cat([c[pj][n] for c in caches], dim=1)
+                 for n in leaves} for pj, leaves in caches[0].items()}
+
+
+def _cache_index(cache: Pytree, i: int) -> Pytree:
+    """Request i's views [G, 1, S, KH, D] of a batch cache."""
+    return {pj: {n: a[:, i:i + 1] for n, a in c.items()}
+            for pj, c in cache.items()}
+
+
+def _write_slab(dst: torch.Tensor, slab: torch.Tensor, off: int) -> None:
+    """dst[:, :, off:off + len] = slab along the sequence axis, the
+    offset moved back into range as the reference's dynamic_update_slice
+    moves it (a node's slab stored before a split of that node is longer
+    than the node)."""
+    n = slab.shape[2]
+    off = max(0, min(off, dst.shape[2] - n))
+    dst[:, :, off:off + n] = slab
 
 
 class Engine:
     def __init__(self, cfg, params, econf: EngineConfig,
                  on_evict: Optional[Callable] = None,
                  device="cuda"):
-        _check_ported(econf)
+        # the engine serves full attention; SWA only changes semantics
+        # beyond max_context
+        self.model_cfg = dataclasses.replace(cfg, sliding_window=0)
+        self.api = zoo.build(self.model_cfg)
+        self.paged = (econf.paged if econf.paged is not None
+                      else self.api.decode_paged is not None)
+        if self.paged and self.api.decode_paged is None:
+            raise ValueError(f"{cfg.name} is not paged-servable "
+                             "(recurrent/cross/encdec positions)")
+        _check_planes(econf, self.paged)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine: CUDA is not available; pass "
@@ -151,13 +200,9 @@ class Engine:
         # host<->device copy timing: None until attach_copy_log()
         self.copy_log: Optional[CopyLog] = None
         full_precision_matmuls()
-        # the engine serves full attention; SWA only changes semantics
-        # beyond max_context
-        self.model_cfg = dataclasses.replace(cfg, sliding_window=0)
-        self.api = zoo.build(self.model_cfg)
         self.params = tree_to(params, self.device)
         self.econf = econf
-        self.fused = econf.fused is None or econf.fused
+        self.fused = self.paged and (econf.fused is None or econf.fused)
         self.scheduler = LocalScheduler(
             LocalSchedulerConfig(
                 instance_id=econf.instance_id,
@@ -176,7 +221,7 @@ class Engine:
         # external eviction notification (protocol v2): called as
         # cb(instance_id, spans, demoted=[...], host_dropped=[...])
         self._ext_evict = on_evict
-        # per-request live state: next input token
+        # per-request live state: next input token (+ cache when dense)
         self.live: Dict[int, Dict[str, Any]] = {}
         # the *_overlap_frac and acceptance ratios are DERIVED at read
         # time; spec_draft_dispatches counts the draft's propose
@@ -185,7 +230,7 @@ class Engine:
         self.stats = StatsDict(
             {"reused_tokens": 0, "prefilled_tokens": 0,
              "decode_steps": 0, "iterations": 0,
-             "decode_batches": 0,
+             "decode_batches": 0, "cache_concat_calls": 0,
              "seed_aliased_pages": 0, "seed_copied_pages": 0,
              "aborted": 0, "model_dispatches": 0,
              "fused_iterations": 0, "fused_padded_tokens": 0,
@@ -226,7 +271,10 @@ class Engine:
         self._prefetch_inflight: List[Tuple[dict, int]] = []
         # the copy stream's event of this step's prefetch scatter
         self._prefetch_event = None
-        self._init_paged()
+        if self.paged:
+            self._init_paged()
+        else:
+            self._init_dense()
 
     # ================= paged data plane =====================================
 
@@ -267,6 +315,19 @@ class Engine:
             self.scheduler.tree.split_hooks.append(self._on_split_host)
         else:
             self.host_store = None
+
+    # ================= dense data plane =====================================
+
+    def _init_dense(self) -> None:
+        """The pool only accounts tokens (no KV lives in it); cached
+        prefixes are KV slabs in ``kv_store``, and each request gets a
+        linear cache at max_context."""
+        self.pool = PagedKVPool(
+            self.econf.capacity_tokens // self.econf.page_size,
+            self.econf.page_size)
+        # node path key -> {p_j: {"k","v": [G, 1, span, KH, D]}}
+        self.kv_store: Dict[PathKey, Pytree] = {}
+        self._cache_spec = self.api.cache_specs(1, self.econf.max_context)
 
     def _copy_page(self, src: int, dst: int) -> None:
         """Copy one page of every pool leaf (the CoW device copy)."""
@@ -395,12 +456,16 @@ class Engine:
     def _on_evict(self, instance_id: int, spans: List[PrefixSpan], *,
                   demoted: List[PrefixSpan] = (),
                   host_dropped: List[PrefixSpan] = ()) -> None:
-        # demote_many already released the tables of spans it saw, but
-        # the scheduler may skip spans entirely (one-shot under host
-        # pressure): release unconditionally — a second release is a
-        # no-op, a leaked table would pin its pages forever
-        for s in spans:
-            self.pool.release(("node", s.key))
+        if self.paged:
+            # demote_many already released the tables of spans it saw,
+            # but the scheduler may skip spans entirely (one-shot under
+            # host pressure): release unconditionally — a second release
+            # is a no-op, a leaked table would pin its pages forever
+            for s in spans:
+                self.pool.release(("node", s.key))
+        else:
+            for s in spans:
+                self.kv_store.pop(s.key, None)
         if self._ext_evict is not None:
             self._ext_evict(instance_id, spans, demoted=list(demoted),
                             host_dropped=list(host_dropped))
@@ -413,7 +478,10 @@ class Engine:
             raise AdmissionError(
                 f"request {r.request_id}: prompt+max_new = {total} "
                 f"exceeds max_context {self.econf.max_context}")
-        self._admit_paged(r, now)
+        if self.paged:
+            self._admit_paged(r, now)
+        else:
+            self._admit_dense(r, now)
 
     def _admit_paged(self, r: Request, now: float) -> None:
         """Seed a request by ALIASING the matched prefix's pages: fork the
@@ -497,6 +565,52 @@ class Engine:
         self.live[r.request_id] = {"next": None}
         r.prefill_done = restore_end
         self.stats["reused_tokens"] += restore_end
+
+    def _admit_dense(self, r: Request, now: float) -> None:
+        """DENSE reference: a fresh linear cache seeded with copies of
+        the matched path's cached KV slabs."""
+        cache = _cache_zeros(self._cache_spec, self.device)
+        m = self.scheduler.tree.match(r.tokens, now=now)
+        reuse = self._seed_attn_kv(cache, m) if m.matched_len else 0
+        reuse = min(reuse, r.prompt_len - 1)
+        if self.pool.free_tokens() >= (r.prompt_len - reuse
+                                       + r.max_new_tokens):
+            self.pool.create(r.request_id)
+            self.pool.append(r.request_id,
+                             r.prompt_len - reuse + r.max_new_tokens)
+        # the prompt's part moves to the prefix store when
+        # _store_prefix publishes its slabs (credit_stored)
+        self.scheduler.set_account(
+            r.request_id,
+            max(r.prompt_len - r.device_cached_len, 0) + r.max_new_tokens)
+        self.live[r.request_id] = {"cache": cache, "next": None}
+        r.prefill_done = reuse
+        self.stats["reused_tokens"] += reuse
+
+    def _seed_attn_kv(self, cache: Pytree, m) -> int:
+        """DENSE reference: copy the cached KV slabs of the matched path
+        into cache[:reuse] (the copies the paged plane exists to avoid),
+        the partial tail inside the next node included."""
+        off = 0
+        for node in m.path:
+            slab = self.kv_store.get(node.path_key)
+            if slab is None:
+                break
+            for pj, c in slab.items():
+                for name in ("k", "v"):
+                    _write_slab(cache[pj][name], c[name], off)
+            off += len(node.tokens)
+        if off < m.matched_len and m.last_node is not None \
+                and m.last_node_matched < len(m.last_node.tokens):
+            slab = self.kv_store.get(m.last_node.path_key)
+            if slab is not None:
+                take = m.last_node_matched
+                for pj, c in slab.items():
+                    for name in ("k", "v"):
+                        _write_slab(cache[pj][name], c[name][:, :, :take],
+                                    off)
+                off += take
+        return off
 
     def _host_restore_chain(self, m, boundary: int, limit: int
                             ) -> Tuple[List[Tuple[PathKey, int, int, int]],
@@ -742,12 +856,27 @@ class Engine:
     # ---- post-prefill: publish the prompt's KV to the prefix store ----------
 
     def _store_prefix(self, r: Request, now: float) -> None:
-        """Alias the request's pages per radix node: each node's sequence
-        covers the full root->node token path, so a later match can fork
-        from the deepest covering node."""
+        """Publish the prompt's KV per radix node: on the paged plane
+        alias the request's pages (each node's sequence covers the full
+        root->node token path, so a later match can fork from the
+        deepest covering node); on the dense plane copy each new node's
+        span out of the request's cache into ``kv_store``."""
         path = self.scheduler.tree.insert(
             r.tokens, instance=self.econf.instance_id, now=now,
             record=False)
+        if not self.paged:
+            cache = self.live[r.request_id]["cache"]
+            off = 0
+            for node in path:
+                span = len(node.tokens)
+                if node.path_key not in self.kv_store:
+                    self.kv_store[node.path_key] = {
+                        pj: {n: c[n][:, :, off:off + span].clone()
+                             for n in ("k", "v")}
+                        for pj, c in cache.items()}
+                    self.scheduler.credit_stored(r.request_id, span)
+                off += span
+            return
         rid = ("req", r.request_id)
         if rid not in self.pool.tables:
             return
@@ -815,8 +944,10 @@ class Engine:
             else:
                 newly_prefilled = self._run_prefills(batch)
                 dec = [it.request for it in batch.decode_items()]
-                if dec:
+                if dec and self.paged:
                     self._decode_batch_paged(dec)
+                elif dec:
+                    self._decode_batch_dense(dec)
             finished = self.scheduler.complete_iteration(batch, now)
             for r in newly_prefilled:
                 self._store_prefix(r, now)
@@ -826,7 +957,8 @@ class Engine:
                     r.output_tokens[-1] = self.live[r.request_id]["next"]
             for r in finished:
                 lv = self.live.pop(r.request_id, None)
-                self.pool.release(("req", r.request_id))
+                self.pool.release(("req", r.request_id) if self.paged
+                                  else r.request_id)
                 if self.draft is not None:
                     self.draft.release(r.request_id)
                     self._observe_spec(r, lv, now)
@@ -861,24 +993,31 @@ class Engine:
         return aborted
 
     def _run_prefills(self, batch: Batch) -> List[Request]:
-        """Serial per-request prefill chunks (the unfused baseline): one
-        dispatch per chunk."""
+        """Serial per-request prefill chunks (the dense plane and the
+        unfused paged baseline): one dispatch per chunk."""
         newly_prefilled: List[Request] = []
         for item in batch.prefill_items():
             r = item.request
             start, chunk = r.prefill_done, item.chunk_tokens
             if chunk <= 0:
                 continue
-            pt = self._page_table_rows([("req", r.request_id)])
             dev = self.device
             toks = torch.tensor(r.tokens[start:start + chunk],
                                 dtype=torch.int32, device=dev)
-            nxt, self.pages = self.api.extend_paged(
-                self.params, self.pages,
-                {"tokens": toks[None],
-                 "start": torch.tensor([start], dtype=torch.int32,
-                                       device=dev),
-                 "page_table": torch.from_numpy(pt).to(dev)})
+            if self.paged:
+                pt = self._page_table_rows([("req", r.request_id)])
+                nxt, self.pages = self.api.extend_paged(
+                    self.params, self.pages,
+                    {"tokens": toks[None],
+                     "start": torch.tensor([start], dtype=torch.int32,
+                                           device=dev),
+                     "page_table": torch.from_numpy(pt).to(dev)})
+            else:
+                # the cache is updated in place; an int start costs no
+                # device read for extend's bounds check
+                nxt, _ = self.api.extend(
+                    self.params, self.live[r.request_id]["cache"],
+                    {"tokens": toks[None], "start": start})
             self.stats["prefilled_tokens"] += chunk
             self.stats["model_dispatches"] += 1
             if start + chunk >= r.prompt_len:
@@ -1084,6 +1223,29 @@ class Engine:
         self.stats["decode_batches"] += 1
         self.stats["model_dispatches"] += 1
 
+    def _decode_batch_dense(self, dec: List[Request]) -> None:
+        """DENSE reference: concatenate the live caches into the batch
+        cache (O(B * S) copies every iteration), one decode dispatch,
+        then give each request its view of the result — the cost the
+        paged plane removes."""
+        caches = _cache_concat(
+            [self.live[r.request_id]["cache"] for r in dec])
+        self.stats["cache_concat_calls"] += 1
+        tokens = np.asarray([self.live[r.request_id]["next"] for r in dec],
+                            np.int32)
+        pos = np.asarray([r.prompt_len + len(r.output_tokens) - 1
+                          for r in dec], np.int32)
+        tokens, pos = lower_arrays((tokens, pos), self.device)
+        nxt, caches = self.api.decode(self.params, caches,
+                                      {"tokens": tokens, "pos": pos})
+        nxt = nxt.cpu().numpy()             # waits for the device
+        for i, r in enumerate(dec):
+            self.live[r.request_id]["cache"] = _cache_index(caches, i)
+            self.live[r.request_id]["next"] = int(nxt[i])
+        self.stats["decode_steps"] += len(dec)
+        self.stats["decode_batches"] += 1
+        self.stats["model_dispatches"] += 1
+
     # ---- failure ---------------------------------------------------------------
 
     def attach_faults(self, faults,
@@ -1140,8 +1302,12 @@ class Engine:
         self.failed = True
         self.live.clear()
         reqs = self.scheduler.drain()
-        # fresh pool, host store, tier and draft plane + re-hook the tree
-        self._init_paged()
+        if self.paged:
+            # fresh pool, host store, tier and draft plane + re-hook the
+            # tree
+            self._init_paged()
+        else:
+            self._init_dense()      # fresh pool + empty prefix store
         return reqs
 
     @property

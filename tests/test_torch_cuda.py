@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: paged decode, then the kernel library (split-K decode, shared-prefix
-decode, flash). Needs an NVIDIA GPU and nvcc (the kernels build at first use):
+decode, flash); then the serving planes on the card against the CPU. Needs an NVIDIA GPU and nvcc (the kernels build at first use):
 every test carries the ``cuda`` marker and skips elsewhere. This file
 imports no JAX, so it runs on a machine that has only the port (where
 tests/conftest.py, which imports JAX, is skipped):
@@ -66,10 +66,12 @@ def _assert_close(got, exp, dtype):
         "the bound")
 
 # (B, H, KH, page, P, n_pages, D): the JAX package's paged cases, then
-# the decode half of full-width smollm-360m (G 3, D 64, page 16)
+# the decode half of full-width smollm-360m (G 3, D 64, page 16), then of
+# full-width mistral-7b at its serve context 1024 (G 4, D 128, page 16)
 CASES = [(3, 8, 2, 16, 4, 32, 64), (2, 4, 4, 8, 6, 24, 32),
          (1, 16, 8, 32, 3, 16, 128),
-         (1, 15, 5, 16, 128, 400, 64), (8, 15, 5, 16, 128, 1100, 64)]
+         (1, 15, 5, 16, 128, 400, 64), (8, 15, 5, 16, 128, 1100, 64),
+         (8, 32, 8, 16, 64, 600, 128)]
 
 
 def _cuda_inputs(B, H, KH, page, P, n_pages, D, seed, dtype):
@@ -288,6 +290,56 @@ def test_decode_kernel_reads_the_model_layout(card, dtype):
     _assert_close(ops.decode_attention(q, kc, vc, lens),
                   decode_attention_plain(q, kc.transpose(1, 2),
                                          vc.transpose(1, 2), lens), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2, 6, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_at_the_dense_serve_shapes(card, dtype, B):
+    """The dense plane's decode at full mistral-7b width: 1024-position
+    caches in the model layout, lens of 313-341-token prompts and their
+    new tokens (its serve in chip_smoke.py decodes 2 and 6 lanes); one
+    launch counted per call."""
+    rng = np.random.default_rng(B)
+    q = _card(rng, dtype, B, 32, 128)
+    kc, vc = _card(rng, dtype, B, 1024, 8, 128), _card(rng, dtype, B, 1024,
+                                                       8, 128)
+    lens = torch.from_numpy(rng.integers(313, 350, B).astype(
+        np.int32)).cuda()
+    n0 = DA.decode_attention.launches
+    got = ops.decode_attention(q, kc, vc, lens)
+    assert DA.decode_attention.launches == n0 + 1
+    _assert_close(got, decode_attention_plain(q, kc.transpose(1, 2),
+                                              vc.transpose(1, 2), lens),
+                  dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,masked", [(1, 1), (2, 0), (8, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_at_the_mistral_serve_shapes(card, dtype, B,
+                                                         masked):
+    """The paged plane's decode at full mistral-7b width as its serve in
+    chip_smoke.py runs it: 64-page rows (context 1024), live lanes of
+    313-349 tokens holding only their own pages (zeros past them), and
+    masked lanes (a prefill-only dispatch's dummy lane, a bucket's
+    padding): an all-zero row, len 1."""
+    rng = np.random.default_rng(100 + B)
+    P, PS, n_pages = 64, 16, 1041
+    q = _card(rng, dtype, B, 32, 128)
+    k, v = (_card(rng, dtype, n_pages, PS, 8, 128),
+            _card(rng, dtype, n_pages, PS, 8, 128))
+    lens = rng.integers(313, 350, B)
+    pt = np.zeros((B, P), np.int32)
+    pages = rng.permutation(np.arange(1, n_pages))
+    for b in range(B - masked):
+        n = -(-int(lens[b]) // PS)
+        pt[b, :n], pages = pages[:n], pages[n:]
+    lens[B - masked:] = 1
+    pt = torch.from_numpy(pt).cuda()
+    lens = torch.from_numpy(lens.astype(np.int32)).cuda()
+    _assert_close(PA.paged_decode_attention(q, k, v, pt, lens),
+                  PA.paged_decode_attention_plain(q, k, v, pt, lens), dtype)
 
 
 def _assert_partial_close(got, q, kp, vp):
@@ -751,3 +803,52 @@ def test_bf16_demote_restore_bytes_round_trip(card):
             back = a[dst.pages].reshape(-1, *a.shape[2:])[start:end]
             assert back.dtype == torch.bfloat16
             assert torch.equal(_as_bits(back).cpu(), want)
+
+
+def _dense_stream(vocab):
+    rng = np.random.default_rng(1)
+    shared = tuple(rng.integers(1, vocab, 29).tolist())
+    return [shared + tuple(rng.integers(1, vocab, 8).tolist())
+            for _ in range(6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-360m", "mistral-7b"])
+def test_dense_engine_card_matches_cpu(card, arch):
+    """The dense plane (paged=False) on the card against the same engine
+    on the CPU, float32 reduced config: token-identical, the same stats,
+    and on the card the split-K decode kernel once per layer per decode
+    batch."""
+    import dataclasses
+    from repro_torch import bridge
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.core.request import Request
+    from repro_torch.serving.engine import Engine, EngineConfig
+    cfg = dataclasses.replace(reduced(ARCHS[arch]), n_layers=2,
+                              dtype="float32")
+    params = bridge.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    outs, stats = {}, {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(cfg, params, EngineConfig(
+            max_context=64, chunk_size=16, max_batch_tokens=64,
+            capacity_tokens=4096, page_size=16, paged=False), device=dev)
+        reqs = [Request(tokens=p, max_new_tokens=4)
+                for p in _dense_stream(cfg.vocab_size)]
+        n0 = DA.decode_attention.launches
+        now, done = 0.0, []
+        for wave in (reqs[:2], reqs[2:]):
+            for r in wave:
+                eng.scheduler.enqueue(r, now)
+            target = len(done) + len(wave)
+            while len(done) < target:
+                done += eng.step(now)
+                now += 0.01
+        launched = DA.decode_attention.launches - n0
+        want = cfg.n_layers * eng.stats["decode_batches"] \
+            if dev == "cuda" else 0
+        assert launched == want and eng.stats["decode_batches"] > 0
+        outs[dev] = [list(r.output_tokens) for r in reqs]
+        stats[dev] = dict(eng.stats)
+    assert outs["cuda"] == outs["cpu"]
+    assert stats["cuda"] == stats["cpu"]
+    assert stats["cuda"]["reused_tokens"] > 0

@@ -171,31 +171,40 @@ def test_engine_defaults_to_the_card(small_model):
         TEngine(tcfg, tparams, TEngineConfig())
 
 
-@pytest.mark.parametrize("field,value", [
-    ("paged", False), ("chips_per_instance", 2)])
+@pytest.mark.parametrize("field,value", [("chips_per_instance", 2)])
 def test_unported_planes_raise(small_model, field, value):
     _, _, tcfg, tparams = small_model
     with pytest.raises(NotImplementedError):
         TEngine(tcfg, tparams, TEngineConfig(**{field: value}), device="cpu")
 
 
-@pytest.mark.parametrize("plane", ["host_tier", "prefetch", "speculative"])
+@pytest.mark.parametrize("plane", ["host_tier", "prefetch", "speculative",
+                                   "dense"])
 def test_ported_planes_build_on_cpu_and_default_to_the_card(small_model,
                                                             plane):
-    """The host tier, its prefetch and speculation build on the CPU when
-    asked for it; without device= they run on CUDA or raise, never
-    falling back to the CPU. Prefetch without the tier is refused, as
-    in the JAX package."""
+    """The host tier, its prefetch, speculation and the dense plane build
+    on the CPU when asked for it; without device= they run on CUDA or
+    raise, never falling back to the CPU. Prefetch without the tier, and
+    tensor-parallel instances on the dense plane, are refused, as in the
+    JAX package."""
     from repro_torch.serving.speculative import SpeculativeConfig
     _, _, tcfg, tparams = small_model
     kw = {"host_tier": dict(host_capacity_tokens=64),
           "prefetch": dict(host_capacity_tokens=64,
                            prefetch_budget_tokens=64),
           "speculative": dict(speculative=SpeculativeConfig(
-              draft_cfg=dataclasses.replace(tcfg, n_layers=1)))}[plane]
+              draft_cfg=dataclasses.replace(tcfg, n_layers=1))),
+          "dense": dict(paged=False)}[plane]
     eng = TEngine(tcfg, tparams, TEngineConfig(**kw), device="cpu")
     assert (eng.draft is not None) == (plane == "speculative")
-    assert (eng.host_store is not None) == (plane != "speculative")
+    assert (eng.host_store is not None) == (plane in ("host_tier",
+                                                      "prefetch"))
+    assert eng.paged == (plane != "dense")
+    if plane == "dense":
+        with pytest.raises(ValueError, match="paged data plane"):
+            TEngine(tcfg, tparams, TEngineConfig(paged=False,
+                                                 chips_per_instance=2),
+                    device="cpu")
     if plane == "prefetch":
         assert eng.scheduler.prefetch_enabled
         with pytest.raises(ValueError, match="host_capacity_tokens"):
