@@ -60,7 +60,20 @@ From the root of a checkout. It
    small float32 configs (token-identical): smollm-360m on the paged and
    the dense plane, mistral-7b on the dense plane, and raw mistral-7b's
    prefill and decode steps past its window (the ring cache wraps);
-9. profiles a second, smaller full-width serve with torch.profiler:
+9. tensor-parallel instances, each submesh's shards on the one card:
+   full-width mistral-7b (the weights of step 7) on the paged fused
+   plane at TP 1, 2 and 4 (head-wise pools) with one dispatch per step,
+   paged-kernel launches = 32 x shards x dispatches, per-shard pool and
+   weight bytes 1/tp of TP 1's, every kernel input the shards gave held
+   against the plain version, and the first dispatch's logits against
+   TP 1's; full-width smollm-360m at TP 2 (slot-wise pool, replicated
+   heads), whose slot shards' partials launches and the merge across
+   shards are held against their plain versions on the served inputs
+   (empty shards included) and timed; reduced float32 smollm-360m and
+   mistral-7b token-identical at TP 1, 2 and 4 and on the card == on
+   the CPU; and a heterogeneous [2, 1] cluster with host tiers that
+   executes an E2 migration and a drain migration, card == CPU;
+10. profiles a second, smaller full-width serve with torch.profiler:
    device busy share, launches per step, the costliest kernels, and the
    paged decode kernel's launches and share of device time.
 
@@ -1243,6 +1256,10 @@ def mistral_phase(torch, DA, PA, cfg, zoo, Engine, EngineConfig, Request,
     print("mistral: " + json.dumps(out))
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     out["served"] = served_shapes(torch, DA, PA, flush, served, "mistral-7b")
+    t0 = time.perf_counter()
+    out["tp"] = mistral_tp_phase(torch, DA, PA, cfg, params, Engine,
+                                 EngineConfig, Request, gen_workload, flush)
+    print(f"tp: mistral-7b TP 1/2/4 took {time.perf_counter() - t0:.1f}s")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1402,7 +1419,11 @@ def reference_phase(torch, configs, bridge, zoo, Engine, EngineConfig,
 
 
 def engine_card_vs_cpu(torch, bridge, cfg, paged, Engine, EngineConfig,
-                       Request):
+                       Request, chips=1):
+    """The engine on the card against the same engine on the CPU, same
+    parameters and stream; ``chips`` > 1: a tensor-parallel engine, its
+    shards on the one card (on the CPU: CPU shards), at the same device
+    capacity. Returns the card's outputs."""
     params = bridge.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     gen = torch.Generator().manual_seed(1)
     shared = torch.randint(1, cfg.vocab_size, (29,), generator=gen).tolist()
@@ -1413,7 +1434,9 @@ def engine_card_vs_cpu(torch, bridge, cfg, paged, Engine, EngineConfig,
     for dev in ("cpu", "cuda"):
         eng = Engine(cfg, params, EngineConfig(
             max_context=64, chunk_size=16, max_batch_tokens=64,
-            capacity_tokens=4096, page_size=16, paged=paged), device=dev)
+            capacity_tokens=4096 // chips, page_size=16, paged=paged,
+            chips_per_instance=chips), device=dev,
+            devices=tp_devices(chips) if dev == "cuda" else None)
         reqs = [Request(tokens=p, max_new_tokens=4) for p in prompts]
         now, done = 0.0, []
         for r in reqs[:2]:
@@ -1429,13 +1452,531 @@ def engine_card_vs_cpu(torch, bridge, cfg, paged, Engine, EngineConfig,
         eng.pool.check_invariants()
         check(eng.stats["reused_tokens"] > 0, f"{dev}: no reuse")
         check(eng.paged == (paged is None), f"{dev}: wrong data plane")
+        check((eng.mesh is None) == (chips == 1), f"{dev}: wrong submesh")
         outs[dev] = [list(r.output_tokens) for r in reqs]
     plane = "paged" if paged is None else "dense"
+    if chips > 1:
+        plane += f" tp{chips} ({eng.plan.pool}-wise pool)"
     check(outs["cuda"] == outs["cpu"],
           f"{cfg.name} {plane}: card and CPU engines disagree: "
           f"{outs['cuda']} vs {outs['cpu']}")
     print(f"reference: reduced float32 {cfg.name} engine, {plane} plane, on "
           f"the card == on the CPU, {len(prompts)} requests token-identical")
+    return outs["cuda"]
+
+
+def tp_reference_phase(torch, configs, bridge, Engine, EngineConfig,
+                       Request):
+    """Reduced float32 smollm-360m and mistral-7b (H 2, KH 1: slot-wise
+    pools) on the paged plane at TP 1, 2 and 4: card == CPU at each
+    degree and the same tokens at every degree."""
+    import dataclasses
+    for arch in ("smollm-360m", "mistral-7b"):
+        cfg = dataclasses.replace(configs.reduced(configs.ARCHS[arch]),
+                                  n_layers=2, dtype="float32")
+        outs = {tp: engine_card_vs_cpu(torch, bridge, cfg, None, Engine,
+                                       EngineConfig, Request, chips=tp)
+                for tp in TP_DEGREES}
+        check(all(o == outs[1] for o in outs.values()),
+              f"{arch}: TP degrees disagree: {outs}")
+        print(f"tp: reduced float32 {arch} token-identical at TP "
+              f"{', '.join(map(str, TP_DEGREES))} (and card == CPU)")
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel instances, their submeshes emulated on the one card
+# ---------------------------------------------------------------------------
+
+TP_DEGREES = (1, 2, 4)
+# the first dispatch's logits at TP 2 and 4 against TP 1's (max |diff|
+# over the rms of TP 1's logits), on a copy of mistral-7b cut to its first
+# TP_LOGIT_LAYERS layers (full width, the same weights) in float32: the
+# shards sum their partial products in another order, so the logits
+# differ by float32 rounding (~1e-5 of their rms on the CPU at reduced
+# width); a wrong head or vocab shard moves them by about their rms. In
+# bf16 the same difference reads 0.05-0.2 of the rms already at 2 layers
+# (the random weights' near one-hot softmax turns rounding into flipped
+# attention), and at all 32 layers O(rms) whatever the reduction order
+# (PERF.md §6: the two data planes share no token there even in
+# float32): both bf16 readings are printed, not gated.
+TP_LOGIT_TOL = 1e-3
+TP_LOGIT_LAYERS = 2
+
+
+def tp_devices(tp):
+    """The submesh of a TP degree on the one card (None: one chip)."""
+    return ["cuda:0"] * tp if tp > 1 else None
+
+
+@contextlib.contextmanager
+def tap_first_logits(torch, store):
+    """While open, the greedy head's first call records its float32
+    logits over the whole vocab (a TP head's vocab shards joined in
+    order) into ``store`` and passes through; later calls only pass."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import zoo as Z
+    one, tp = Z.top1_logits, L.top1_logits_tp
+
+    def one_tap(h, w):
+        if not store:
+            store.append((h @ w).float())
+        return one(h, w)
+
+    def tp_tap(hs, ps, cfg, plan):
+        if not store:
+            parts = [(h @ L.head_matrix(p, cfg)).float().to(hs[0].device)
+                     for h, p in zip(hs, ps)]
+            store.append(torch.cat(parts, -1) if plan.vocab else parts[0])
+        return tp(hs, ps, cfg, plan)
+    Z.top1_logits, L.top1_logits_tp = one_tap, tp_tap
+    try:
+        yield
+    finally:
+        Z.top1_logits, L.top1_logits_tp = one, tp
+
+
+def shard_bytes(torch, eng):
+    """(weight bytes, pool bytes) of each shard, from its own tensors."""
+    from repro_torch.launch.sharding import tree_bytes
+    if eng.mesh is None:
+        return [tree_bytes(eng.params)], [tree_bytes(eng.pages)]
+    return ([tree_bytes(p) for p in eng.params],
+            [tree_bytes(p) for p in eng.pages])
+
+
+def mistral_tp_phase(torch, DA, PA, cfg, params, Engine, EngineConfig,
+                     Request, gen_workload, flush):
+    """mistral-7b at full width (the mistral phase's random weights) on
+    the paged fused plane at TP 1, 2 and 4, the shards of a submesh all
+    on the one card (head-wise: KH 8 gives 4 or 2 kv heads a shard), at
+    the same device capacity, so every TP degree schedules alike. Checks
+    one dispatch per step, paged-kernel launches = 32 x shards x
+    dispatches, each shard's pool bytes 1/tp of TP 1's and weight bytes
+    1/tp up to the replicated norms, every kernel input the shards gave
+    (first layer of each dispatch) within the bf16 bound of its plain
+    version, and the first dispatch's float32 logits of the model cut to
+    TP_LOGIT_LAYERS layers within TP_LOGIT_TOL of TP 1's (bf16 at that
+    depth and at full depth printed only, with the share of tokens that
+    agree); prints the plans, launches, bytes, walls and shard timers."""
+    out, logits, outputs = {}, {}, {}
+    for tp in TP_DEGREES:
+        ec = dict(MISTRAL_ECONF, chips_per_instance=tp,
+                  capacity_tokens=MISTRAL_ECONF["capacity_tokens"] // tp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = Engine(cfg, params, EngineConfig(**ec), device="cuda",
+                     devices=tp_devices(tp))
+        torch.cuda.synchronize()
+        shard_s = time.perf_counter() - t0
+        reqs = mistral_requests(Request, gen_workload, cfg.vocab_size)
+        first, served = [], {"decode": [], "paged": []}
+        PA.paged_decode_attention.launches = 0
+        PA.paged_decode_partials.launches = PA.lse_merge_partials.launches = 0
+        with tap_first_logits(torch, first), \
+                tap_decode_kernels(torch, cfg.n_layers * tp, served):
+            t0 = time.perf_counter()
+            steps = serve_waves(eng, reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = PA.paged_decode_attention.launches
+        name = f"mistral tp{tp}"
+        check_outputs(name, reqs, cfg.vocab_size)
+        st = eng.stats
+        check(st["model_dispatches"] == st["iterations"],
+              f"{name}: {st['model_dispatches']} dispatches in "
+              f"{st['iterations']} iterations")
+        check(launches == cfg.n_layers * tp * st["model_dispatches"],
+              f"{name}: paged kernel launches {launches} != {cfg.n_layers} "
+              f"x {tp} x {st['model_dispatches']} dispatches")
+        check(PA.paged_decode_partials.launches == 0
+              and PA.lse_merge_partials.launches == 0,
+              f"{name}: a head-wise pool ran the slot path")
+        plan = eng.plan
+        if tp > 1:
+            check(plan.pool == "head" and plan.heads and plan.kv_heads
+                  and plan.ff and plan.vocab,
+                  f"{name}: plan {plan.pool} heads {plan.heads} kv "
+                  f"{plan.kv_heads} ff {plan.ff} vocab {plan.vocab}")
+            check(all(p["p0"]["g0"]["k"].shape[2] == cfg.n_kv_heads // tp
+                      for p in eng.pages), f"{name}: pool not head-wise")
+        w, pool = shard_bytes(torch, eng)
+        logits[tp] = first[0]
+        outputs[tp] = [list(r.output_tokens) for r in reqs]
+        out[tp] = dict(
+            plan=(dict(pool=plan.pool, heads=plan.heads,
+                       kv_heads=plan.kv_heads, ff=plan.ff, vocab=plan.vocab,
+                       kv_heads_per_shard=cfg.n_kv_heads // tp)
+                  if plan is not None else "one chip"),
+            steps=steps, model_dispatches=st["model_dispatches"],
+            paged_launches=launches, wall_s=wall, steps_per_s=steps / wall,
+            shard_params_s=shard_s, weight_bytes_per_shard=w,
+            pool_bytes_per_shard=pool,
+            shard_dma_seconds=st["shard_dma_seconds"],
+            collective_seconds=st["collective_seconds"],
+            collective_share=st["collective_seconds"] / wall,
+            reused_tokens=st["reused_tokens"],
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        check(not served["decode"], f"{name}: the split-K kernel ran")
+        rows = served_shapes(torch, DA, PA, flush,
+                             {"paged": served["paged"]}, f"mistral-7b tp{tp}")
+        out[tp]["served"] = rows.get("paged", [])
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    cut = {dt: cut_logits(torch, cfg, params, Engine, EngineConfig,
+                          Request, gen_workload, dt)
+           for dt in ("float32", "bfloat16")}
+    for tp in TP_DEGREES[1:]:
+        same = sum(a == b for x, y in zip(outputs[tp], outputs[1])
+                   for a, b in zip(x, y))
+        out[tp].update(logit_diff(logits[tp], logits[1], "full_depth"))
+        for dt, c in cut.items():
+            out[tp].update(logit_diff(c[tp], c[1],
+                                      f"{TP_LOGIT_LAYERS}_layers_{dt}"))
+        out[tp]["token_agreement_with_tp1"] = same / sum(
+            map(len, outputs[1]))
+    card = card_line()
+    for tp in TP_DEGREES:
+        o = {k: v for k, v in out[tp].items() if k != "served"}
+        print(f"tp: mistral-7b tp{tp} " + json.dumps(dict(o, card=card)))
+    w1, p1 = out[1]["weight_bytes_per_shard"][0], \
+        out[1]["pool_bytes_per_shard"][0]
+    for tp in TP_DEGREES[1:]:
+        o = out[tp]
+        check(all(p * tp == p1 for p in o["pool_bytes_per_shard"]),
+              f"tp{tp}: pool bytes a shard {o['pool_bytes_per_shard']} are "
+              f"not 1/{tp} of {p1}")
+        check(all(abs(b * tp - w1) <= 1e-3 * w1
+                  for b in o["weight_bytes_per_shard"]),
+              f"tp{tp}: weight bytes a shard {o['weight_bytes_per_shard']} "
+              f"are not 1/{tp} of {w1}")
+        err = o[f"first_logits_err_over_rms_{TP_LOGIT_LAYERS}_layers_"
+                "float32"]
+        check(err <= TP_LOGIT_TOL, f"tp{tp}: the first dispatch's float32 "
+              f"logits at {TP_LOGIT_LAYERS} layers are {err:.3g} x the rms "
+              f"of TP 1's (tolerance {TP_LOGIT_TOL})")
+    return out
+
+
+def logit_diff(got, ref, tag):
+    """max |got - ref| over the rms of ref, and the share of rows whose
+    argmax agrees."""
+    check(got.shape == ref.shape, f"first logits {tuple(got.shape)} vs "
+          f"{tuple(ref.shape)}")
+    return {f"first_logits_err_over_rms_{tag}": (
+        (got - ref).abs().max() / ref.pow(2).mean().sqrt()).item(),
+        f"first_argmax_agree_{tag}": (
+            got.argmax(-1) == ref.argmax(-1)).float().mean().item()}
+
+
+def cut_logits(torch, cfg, params, Engine, EngineConfig, Request,
+               gen_workload, dtype):
+    """The first dispatch's logits (the first 2 requests' first chunks)
+    of mistral-7b cut to its first TP_LOGIT_LAYERS layers (full width, the
+    same weights in ``dtype``) at each TP degree."""
+    import dataclasses
+    cut = dataclasses.replace(cfg, n_layers=TP_LOGIT_LAYERS, dtype=dtype)
+    dt = getattr(torch, dtype)
+
+    def head(tree, layers):
+        if isinstance(tree, dict):
+            return {k: head(v, layers) for k, v in tree.items()}
+        return (tree[:TP_LOGIT_LAYERS] if layers else tree).to(dt)
+    p = {"embed": head(params["embed"], False),
+         "stack": head(params["stack"], True)}
+    logits = {}
+    for tp in TP_DEGREES:
+        ec = dict(MISTRAL_ECONF, chips_per_instance=tp,
+                  capacity_tokens=MISTRAL_ECONF["capacity_tokens"] // tp)
+        eng = Engine(cut, p, EngineConfig(**ec), device="cuda",
+                     devices=tp_devices(tp))
+        first = []
+        with tap_first_logits(torch, first):
+            for r in mistral_requests(Request, gen_workload,
+                                      cfg.vocab_size)[:2]:
+                eng.scheduler.enqueue(r, 0.0)
+            eng.step(0.0)
+        logits[tp] = first[0]
+        del eng
+        gc.collect()
+    return logits
+
+
+@contextlib.contextmanager
+def tap_slot_kernels(torch, n_layers, tp, served):
+    """While open, the slot shards' partials launches and their merge
+    pass straight through to their wrappers, and the first layer of each
+    dispatch keeps, per shard, (q shape, slot pool shape, page table,
+    the shard's lens) in ``served``."""
+    from repro_torch.models import attention as A
+    part, merge = A.paged_decode_partials, A.lse_merge_partials
+    calls = {"partials": 0, "merge": 0}
+
+    def part_tap(q, k, v, pt, lens):
+        if calls["partials"] % (n_layers * tp) == 0:
+            served.append([])
+        if calls["partials"] % (n_layers * tp) < tp:
+            served[-1].append((tuple(q.shape), tuple(k.shape), pt.clone(),
+                               lens.clone()))
+        calls["partials"] += 1
+        return part(q, k, v, pt, lens)
+
+    def merge_tap(*a):
+        calls["merge"] += 1
+        return merge(*a)
+    A.paged_decode_partials, A.lse_merge_partials = part_tap, merge_tap
+    try:
+        yield
+    finally:
+        A.paged_decode_partials, A.lse_merge_partials = part, merge
+    check(calls["partials"] == n_layers * tp * len(served)
+          and calls["merge"] == n_layers * len(served),
+          f"slot taps: {calls} for {len(served)} dispatches")
+
+
+def slot_shapes(torch, PA, flush, served, tp):
+    """Hold the partials entry and the merge against their plain versions
+    on every input the slot shards gave them (random bf16 q and slot
+    pools at the served shapes, the served page tables and shard lens):
+    each shard's partials against the plain partials on the kernel's own
+    splits, the merge of all shards' partials against the torch
+    lse_merge, and that against unsharded plain paged attention over the
+    shards' slots joined into whole pages. Then times the last input of
+    each lane count: shard 0's partials launch (its bound: its valid KV,
+    q, the f32 partials written; yardstick: SDPA over the same keys) and
+    the merge (bound: the partials read, the output written)."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    bf = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    last, empty = {}, 0
+    for shards in served:
+        qs = shards[0][0]
+        q = rand(torch, g, bf, *qs)
+        pools = [(rand(torch, g, bf, *sh[1]), rand(torch, g, bf, *sh[1]))
+                 for sh in shards]
+        parts = []
+        for (_, _, pt, ls), (k, v) in zip(shards, pools):
+            empty += int((ls == 0).sum())
+            got = PA.paged_decode_partials(q, k, v, pt, ls)
+            ns, pps = PA.plan_for(q, k, pt)
+            exp = PA.paged_decode_partials_plain(q, k, v, pt, ls, ns, pps)
+            for name, a, b in zip(("m", "l", "acc"), got, exp):
+                check(bool(((a == b) | (a - b).abs().le(
+                    1e-3 + 1e-4 * b.abs())).all()),
+                      f"slot partials {name} B{qs[0]} lens "
+                      f"{ls.tolist()}: max |kernel - plain| "
+                      f"{(a - b).abs().nan_to_num().max().item():.3e}")
+            parts.append(got)
+        acc, m, l = (torch.cat([p[i] for p in parts], 2) for i in range(3))
+        o = PA.lse_merge_partials(acc, m, l, bf)
+        close(torch, f"merge served B{qs[0]}", o,
+              PA.lse_merge_partials_plain(acc, m, l, bf), BF16)
+        k = torch.cat([p[0] for p in pools], 1)
+        v = torch.cat([p[1] for p in pools], 1)
+        lens = sum(sh[3] for sh in shards)
+        close(torch, f"slotwise served B{qs[0]}", o,
+              PA.paged_decode_attention_plain(q, k, v, shards[0][2], lens),
+              BF16)
+        n = last.get(qs[0], (0,))[0]
+        last[qs[0]] = (n + 1, q, pools[0], shards[0], (acc, m, l))
+    counts = {b: c[0] for b, c in sorted(last.items())}
+    print(f"tp: smollm-360m tp{tp} slot partials and merge held against "
+          f"their plain versions on all {len(served)} served dispatches "
+          f"({empty} empty shard lanes; dispatches by lane count {counts})")
+    rows = []
+    for B, (n, q, (k, v), (_, _, pt, ls), (acc, m, l)) in sorted(
+            last.items()):
+        _, H, D = q.shape
+        PSs, KH = k.shape[1], k.shape[2]
+        P = pt.shape[1]
+        ntok = int(ls.sum())
+        ns, pps = PA.plan_for(q, k, pt)
+        idx = pt.long()
+        kg = k[idx].reshape(B, P * PSs, KH, D).permute(0, 2, 1, 3)
+        vg = v[idx].reshape(B, P * PSs, KH, D).permute(0, 2, 1, 3)
+        mask = (torch.arange(P * PSs, device="cuda")[None, :]
+                < ls[:, None])[:, None, None, :]
+        kg, vg = kg.contiguous(), vg.contiguous()
+        part_out = B * KH * ns * (H // KH) * (D + 2) * 4
+        b_ms, b_by = bound(ntok * KH * D * 2 * 2 + q.numel() * 2 + B * 4
+                           + part_out, 4 * ntok * H * D)
+        prow = dict(kernel="paged_decode_partials", B=B, H=H, KH=KH, D=D,
+                    slot_page=PSs, P=P, lens=ls.tolist(), n_splits=ns,
+                    dispatches=n,
+                    ms=time_ms(torch, lambda: PA.paged_decode_partials(
+                        q, k, v, pt, ls), flush),
+                    plain_ms=time_ms(torch, lambda: PA.
+                                     paged_decode_partials_plain(
+                                         q, k, v, pt, ls, ns, pps),
+                                     flush, n=10),
+                    library_ms=time_ms(torch, lambda: sdpa(
+                        q[:, :, None], kg, vg, attn_mask=mask,
+                        enable_gqa=True), flush),
+                    bound_ms=b_ms, bound_by=b_by)
+        prow["max_abs_err"] = max(
+            (a - b).abs().nan_to_num().max().item() for a, b in zip(
+                PA.paged_decode_partials(q, k, v, pt, ls),
+                PA.paged_decode_partials_plain(q, k, v, pt, ls, ns, pps)))
+        mb_ms, mb_by = bound(acc.numel() * 4 + 2 * m.numel() * 4
+                             + B * H * D * 2, 0)
+        mrow = dict(kernel="lse_merge_partials", B=B, H=H, D=D,
+                    slots=acc.shape[2], dispatches=n,
+                    max_abs_err=(PA.lse_merge_partials(acc, m, l, bf).float()
+                                 - PA.lse_merge_partials_plain(
+                                     acc, m, l, bf).float()).abs().max()
+                    .item(),
+                    ms=time_ms(torch, lambda: PA.lse_merge_partials(
+                        acc, m, l, bf), flush),
+                    plain_ms=time_ms(torch, lambda: PA.
+                                     lse_merge_partials_plain(acc, m, l, bf),
+                                     flush, n=10),
+                    library_ms=None, bound_ms=mb_ms, bound_by=mb_by)
+        for r in (prow, mrow):
+            print("tp: slot served " + json.dumps(r))
+        rows.append((B, n, prow, mrow))
+    return rows
+
+
+def smollm_slot_phase(torch, PA, configs, zoo, Engine, EngineConfig,
+                      Request, gen_workload, flush, tp=2):
+    """Full-width smollm-360m (bf16, random weights from seed 0) on a
+    TP-2 engine on the one card: KH 5 gives a slot-wise pool (8 of a
+    page's 16 slots a shard) and H 15 replicated heads. Serves the
+    mistral phase's 8 distinct prompts (the first 2, then the rest);
+    checks that every decode ran as tp partials launches and one merge
+    per layer and dispatch, never the whole-page kernel, then holds both
+    against their plain versions on the served inputs
+    (``slot_shapes``)."""
+    cfg = configs.get_config("smollm-360m")
+    params = zoo.build(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0), "cuda")
+    eng = Engine(cfg, params, EngineConfig(
+        max_context=1024, chunk_size=64, max_batch_tokens=256, page_size=16,
+        capacity_tokens=8192 // tp, chips_per_instance=tp),
+        device="cuda", devices=tp_devices(tp))
+    del params
+    plan = eng.plan
+    check(plan.pool == "slot" and not plan.heads and not plan.kv_heads
+          and plan.slot_size == 16 // tp,
+          f"smollm tp{tp}: plan {plan}")
+    reqs = mistral_requests(Request, gen_workload, cfg.vocab_size)
+    served = []
+    PA.paged_decode_attention.launches = 0
+    PA.paged_decode_partials.launches = PA.lse_merge_partials.launches = 0
+    with tap_slot_kernels(torch, cfg.n_layers, tp, served):
+        t0 = time.perf_counter()
+        steps = serve_waves(eng, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    st = eng.stats
+    check_outputs(f"smollm tp{tp}", reqs, cfg.vocab_size)
+    n = st["model_dispatches"]
+    got = (PA.paged_decode_attention.launches,
+           PA.paged_decode_partials.launches, PA.lse_merge_partials.launches)
+    check(n == st["iterations"] and got == (0, cfg.n_layers * tp * n,
+                                            cfg.n_layers * n),
+          f"smollm tp{tp}: launches (paged, partials, merge) {got} for {n} "
+          "dispatches")
+    out = dict(steps=steps, model_dispatches=n, wall_s=wall,
+               partials_launches=got[1], merge_launches=got[2],
+               reused_tokens=st["reused_tokens"],
+               shard_dma_seconds=st["shard_dma_seconds"],
+               collective_seconds=st["collective_seconds"],
+               weight_bytes_per_shard=shard_bytes(torch, eng)[0],
+               pool_bytes_per_shard=shard_bytes(torch, eng)[1])
+    print(f"tp: smollm-360m tp{tp} " + json.dumps(dict(out,
+                                                       card=card_line())))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["served"] = slot_shapes(torch, PA, flush, served, tp)
+    return out
+
+
+def rebalance_and_drain(cl, Request, vocab):
+    """tests/test_torch_spmd.py::_rebalance_and_drain: the reference's
+    heterogeneous stream on a [2, 1] cluster with 48 tokens a chip, 8
+    unique prompts that push the shared prefix into instance 0's host
+    tier, 3 re-hits routed to instance 1 (instance 0 flagged heavy) with
+    a migration of the demoted prefix, then a drain of instance 0 and
+    one more re-hit. Returns (placements, outputs, (migrations, migrated
+    tokens), drained tokens)."""
+    import numpy as np
+    rng = np.random.default_rng(5)
+    shared = tuple(rng.integers(1, vocab, 24).tolist())
+    rr = np.random.default_rng(9)
+    first = [Request(tokens=shared + tuple(rr.integers(1, vocab, 8 + i)
+                                           .tolist()),
+                     max_new_tokens=4, arrival_time=0.005 * i)
+             for i in range(8)]
+    n = len(cl.run(first, dt=0.01))
+    now = 1.0
+
+    def serve(reqs):
+        nonlocal now, n
+        for r in reqs:
+            cl.submit(r, now)
+        n += len(reqs)
+        for _ in range(3000):
+            cl.step(now)
+            now += 0.01
+            if len(cl.finished) == n:
+                cl.check_invariants()
+                return reqs
+        fail("heterogeneous cluster did not converge")
+
+    thrash = serve([Request(tokens=tuple(rr.integers(1, vocab, 44)
+                                         .tolist()), max_new_tokens=2)
+                    for _ in range(8)])
+    cl.gs._redirects = {0: 1}
+    again = serve([Request(tokens=shared + tuple(rr.integers(1, vocab, 6)
+                                                 .tolist()),
+                           max_new_tokens=3) for _ in range(3)])
+    migrations = (cl.stats["migrations"], cl.stats["migrated_tokens"])
+    moved = cl.drain_instance(0, now)
+    more = serve([Request(tokens=shared + (5, 6, 7), max_new_tokens=3)])
+    reqs = first + thrash + again + more
+    return ([r.instance for r in reqs], [list(r.output_tokens)
+                                         for r in reqs], migrations, moved)
+
+
+def hetero_cluster_phase(torch, configs, bridge, ClusterRuntime,
+                         EngineConfig, Request):
+    """A [2, 1] cluster with host tiers (reduced float32 smollm-360m), the
+    2-chip instance's submesh on the one card, against the same cluster
+    on the CPU: E2 must execute a migration and the drain move tokens;
+    placements, outputs and migrations identical on both."""
+    import dataclasses
+    from repro_torch.core.cost_model import cost_model_for
+    from repro_torch.core.global_scheduler import GlobalSchedulerConfig
+    cfg = dataclasses.replace(configs.reduced(configs.ARCHS["smollm-360m"]),
+                              n_layers=2, dtype="float32")
+    params = bridge.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    kw = dict(max_context=96, chunk_size=16, max_batch_tokens=96,
+              max_batch_requests=8, capacity_tokens=48, page_size=16,
+              host_capacity_tokens=8192)
+    runs, stats = {}, {}
+    for dev in ("cpu", "cuda"):
+        cl = ClusterRuntime(
+            cfg, params, num_instances=2, engine_cfg=EngineConfig(**kw),
+            cost_model=cost_model_for("llama3-70b"),
+            scheduler_cfg=GlobalSchedulerConfig(
+                th_bal=1e9, capacity_tokens=48, host_capacity_tokens=8192),
+            chips_per_instance=[2, 1], device=dev,
+            devices=["cuda:0"] * 3 if dev == "cuda" else None)
+        check(cl.engines[0].mesh.size == 2 and cl.engines[1].mesh is None,
+              f"{dev}: not a [2, 1] cluster")
+        runs[dev] = rebalance_and_drain(cl, Request, cfg.vocab_size)
+        stats[dev] = dict(cl.stats)
+    check(runs["cuda"] == runs["cpu"],
+          f"heterogeneous cluster: card {runs['cuda']} vs CPU {runs['cpu']}")
+    (migr, migr_tok), moved = runs["cuda"][2], runs["cuda"][3]
+    check(migr >= 1 and migr_tok > 0, "E2 executed no migration")
+    check(moved > 0, "the drain migrated nothing")
+    print(f"tp: heterogeneous [2, 1] cluster with host tiers on the card "
+          f"== on the CPU ({len(runs['cuda'][1])} requests, placements "
+          f"{runs['cuda'][0]}): {migr} E2 migration(s) of {migr_tok} tokens "
+          f"executed, drain moved {moved} tokens; {json.dumps(stats['cuda'])}")
 
 
 def main() -> None:
@@ -1501,6 +2042,15 @@ def main() -> None:
           "allocated after it")
     reference_phase(torch, configs, bridge, zoo, Engine, EngineConfig,
                     Request)
+    t0 = time.perf_counter()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    slot = smollm_slot_phase(torch, PA, configs, zoo, Engine, EngineConfig,
+                             Request, gen_workload, flush)
+    tp_reference_phase(torch, configs, bridge, Engine, EngineConfig, Request)
+    hetero_cluster_phase(torch, configs, bridge, ClusterRuntime,
+                         EngineConfig, Request)
+    print(f"tp: slot, reference and cluster phases took "
+          f"{time.perf_counter() - t0:.1f}s")
     profile_phase(torch, PA, serve)
     print("check: bf16 kernel vs plain, largest share of the bound used "
           f"(bound 2^-7 |plain| + 2^-6 rms of the plain row): "
@@ -1538,6 +2088,24 @@ def main() -> None:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the slot shards' partials launch and the merge across shards: the
+    # TP phase's launches and its served lane count with the most
+    # dispatches (the wider on a tie)
+    _, _, prow, mrow = max(slot["served"], key=lambda r: (r[1], r[0]))
+    for r, name, src, tpu, n in (
+            (prow, "paged_decode_partials", "paged_attention.cu",
+             "src/repro/kernels/paged_attention.py:58",
+             slot["partials_launches"]),
+            (mrow, "lse_merge_partials", "attention.cuh",
+             "src/repro/kernels/decode_attention.py:101",
+             slot["merge_launches"])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": tpu, "launches": n, "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,12 +11,14 @@ stack leaf stacked over [n_groups, ...], and page pools
 (uint16 leaves are bfloat16 bits). ``init_params`` makes the port's own
 random parameters with the shapes and init kinds of the JAX package's
 specs (``fan_in`` / ``ones`` / normal); the values differ from JAX's.
+``param_specs`` also carries each leaf's logical sharding axes, copied
+from the JAX package's specs, for ``launch/sharding.py``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,36 +66,65 @@ def tree_to(tree: Pytree, device) -> Pytree:
     return tree.to(device)
 
 
-# (shape, init) per leaf, in the JAX package's spec order
-Spec = Tuple[Tuple[int, ...], str]
+class Spec(NamedTuple):
+    """One parameter leaf: its shape, its init kind and its logical axes
+    (one name or None per dim, the JAX package's vocabulary: "layers",
+    "vocab", "embed", "heads", "kv_heads", "ff")."""
+    shape: Tuple[int, ...]
+    init: str
+    axes: Tuple[Optional[str], ...]
 
 
 def param_specs(cfg) -> Dict[str, Any]:
-    """Shapes and init kinds of a paged-servable decoder with SwiGLU
-    FFNs, as ``models/spec.py`` of the JAX package declares them."""
+    """Shapes, init kinds and logical axes of a paged-servable decoder
+    with SwiGLU FFNs, as ``models/spec.py`` of the JAX package declares
+    them (``layers.attn_specs``, ``mlp_specs``, ``embed_specs`` and
+    ``norm_spec``; stack leaves gain the leading "layers" axis)."""
     d, H, KH, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     n, f = cfg.n_groups, cfg.d_ff
-    embed: Dict[str, Spec] = {"tok": ((cfg.vocab_size, d), "normal"),
-                              "final_norm": ((d,), "ones")}
+    embed: Dict[str, Spec] = {
+        "tok": Spec((cfg.vocab_size, d), "normal", ("vocab", "embed")),
+        "final_norm": Spec((d,), "ones", (None,))}
     if not cfg.tie_embeddings:
-        embed["head"] = ((d, cfg.vocab_size), "fan_in")
+        embed["head"] = Spec((d, cfg.vocab_size), "fan_in",
+                             ("embed", "vocab"))
+    norm = Spec((n, d), "ones", ("layers", None))
     stack = {}
     for j, pos in enumerate(layer_plan(cfg)):
         if pos.mixer != "attn" or pos.cross or pos.ffn != "mlp":
             raise NotImplementedError(f"{cfg.name}: layer kind {pos} is not "
                                       "ported yet")
         p: Dict[str, Any] = {
-            "norm1": ((n, d), "ones"),
-            "attn": {"wq": ((n, d, H, Dh), "fan_in"),
-                     "wk": ((n, d, KH, Dh), "fan_in"),
-                     "wv": ((n, d, KH, Dh), "fan_in"),
-                     "wo": ((n, H, Dh, d), "fan_in")}}
+            "norm1": norm,
+            "attn": {
+                "wq": Spec((n, d, H, Dh), "fan_in",
+                           ("layers", "embed", "heads", None)),
+                "wk": Spec((n, d, KH, Dh), "fan_in",
+                           ("layers", "embed", "kv_heads", None)),
+                "wv": Spec((n, d, KH, Dh), "fan_in",
+                           ("layers", "embed", "kv_heads", None)),
+                "wo": Spec((n, H, Dh, d), "fan_in",
+                           ("layers", "heads", None, "embed"))}}
         if not cfg.parallel_block:
-            p["norm2"] = ((n, d), "ones")
-        p["ffn"] = {"wg": ((n, d, f), "fan_in"), "wu": ((n, d, f), "fan_in"),
-                    "wd": ((n, f, d), "fan_in")}
+            p["norm2"] = norm
+        p["ffn"] = {"wg": Spec((n, d, f), "fan_in", ("layers", "embed", "ff")),
+                    "wu": Spec((n, d, f), "fan_in", ("layers", "embed", "ff")),
+                    "wd": Spec((n, f, d), "fan_in", ("layers", "ff", "embed"))}
         stack[f"p{j}"] = p
     return {"embed": embed, "stack": stack}
+
+
+def param_bytes(cfg) -> int:
+    """Bytes of the parameters in ``cfg.dtype`` (the JAX package's
+    ``ModelAPI.n_bytes``)."""
+    item = getattr(torch, cfg.dtype).itemsize
+
+    def walk(tree):
+        if isinstance(tree, Spec):
+            return item * math.prod(tree.shape)
+        return sum(walk(v) for v in tree.values())
+
+    return walk(param_specs(cfg))
 
 
 def init_params(cfg, generator: torch.Generator, device) -> Pytree:
@@ -106,7 +137,7 @@ def init_params(cfg, generator: torch.Generator, device) -> Pytree:
     def walk(tree):
         if isinstance(tree, dict):
             return {k: walk(v) for k, v in tree.items()}
-        shape, kind = tree
+        shape, kind = tree.shape, tree.init
         if kind == "ones":
             return torch.ones(shape, dtype=dt, device=device)
         scale = 1.0 / math.sqrt(shape[-2]) if kind == "fan_in" else 0.02

@@ -30,6 +30,14 @@
 //   * n_splits 1: the block normalises and writes [G, D] in q's dtype (one
 //     launch). n_splits > 1: f32 partials (acc [B, KH, n_splits, G, D],
 //     m, l) and repro::lse_merge_kernel (two launches).
+//   * the partials entry (repro_paged_decode_partials) skips the merge and
+//     returns every split's f32 partial, whatever n_splits: a slot shard of
+//     a tensor-parallel pool holds PS/tp slots of every page, so its
+//     lane's valid tokens are a prefix of its own pages of PS/tp slots,
+//     and the shards' partials are merged together by one more launch of
+//     lse_merge_kernel (repro_lse_merge), distributed flash-decoding over
+//     the slot shards. A shard whose prefix is empty (len 0) writes the
+//     empty partial (acc 0, m -inf, l 0), which weighs nothing there.
 // Not done yet (later work): tensor-core products for G 8, and persistent
 // blocks (the grid is still one wave of ragged splits).
 #include "attention.cuh"
@@ -99,20 +107,20 @@ cudaError_t launch_gd(const void* q, const void* k, const void* v,
                       const int32_t* pt, const int32_t* lens, void* out,
                       float* acc, float* m, float* l, int B, int H, int KH,
                       int P, int PS, int n_pages, int n_splits, int pps,
-                      cudaStream_t stream) {
+                      bool partials, cudaStream_t stream) {
   auto* kernel = &paged_split_kernel<T, G, D>;
   const size_t smem = smem_bytes<T, D>(pps);
   cudaError_t err = repro::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_splits, KH, B);
-  const bool direct = n_splits == 1;
+  const bool direct = n_splits == 1 && !partials;
   kernel<<<grid, skv::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), pt, lens, static_cast<T*>(out),
       direct ? nullptr : acc, m, l, H, KH, P, PS, n_pages, pps,
       repro::inv_sqrt(D) * repro::kLog2e);
   err = cudaGetLastError();
-  if (err != cudaSuccess || direct) return err;
+  if (err != cudaSuccess || direct || partials) return err;
   return repro::launch_lse_merge<T>(acc, m, l, B * H, G, n_splits, D,
                                     static_cast<T*>(out), nullptr, nullptr,
                                     nullptr, stream);
@@ -124,6 +132,7 @@ struct LaunchFn {
   void* out;
   float *acc, *m, *l;
   int B, H, KH, P, PS, n_pages, n_splits, pps;
+  bool partials;
   cudaStream_t stream;
   cudaError_t* err;
   template <typename T, int G, int D>
@@ -131,7 +140,21 @@ struct LaunchFn {
     *err = launch_gd<T, G, D>(q, k, v, static_cast<const int32_t*>(pt),
                               static_cast<const int32_t*>(lens), out, acc, m,
                               l, B, H, KH, P, PS, n_pages, n_splits, pps,
-                              stream);
+                              partials, stream);
+  }
+};
+
+struct MergeFn {
+  const float *acc, *m, *l;
+  void* out;
+  int rows, G, n_slots, D;
+  cudaStream_t stream;
+  cudaError_t* err;
+  template <typename T>
+  void operator()() const {
+    *err = repro::launch_lse_merge<T>(acc, m, l, rows, G, n_slots, D,
+                                      static_cast<T*>(out), nullptr, nullptr,
+                                      nullptr, stream);
   }
 };
 
@@ -172,9 +195,57 @@ int repro_paged_decode_attention(const void* q, const void* k_pages,
   const LaunchFn f{q, k_pages, v_pages, page_table, lens, out,
                    static_cast<float*>(acc), static_cast<float*>(m),
                    static_cast<float*>(l), B, H, KH, P, PS, n_pages,
-                   n_splits, pps, static_cast<cudaStream_t>(stream), &err};
+                   n_splits, pps, false, static_cast<cudaStream_t>(stream),
+                   &err};
   if (!repro::dispatch_dtype_gd(dtype, H / KH, D, f))
     return (int)cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// The split kernel alone, for any n_splits: every split's f32 partial in
+// acc [B, KH, n_splits, G, D], m and l [B, KH, n_splits, G] (m in natural
+// log units; an empty split: acc 0, m -inf, l 0). Same arguments as
+// repro_paged_decode_attention without out.
+int repro_paged_decode_partials(const void* q, const void* k_pages,
+                                const void* v_pages, const void* page_table,
+                                const void* lens, void* acc, void* m, void* l,
+                                int B, int H, int KH, int D, int P, int PS,
+                                int n_pages, int n_splits, int pps, int dtype,
+                                void* stream) {
+  if (B <= 0 || KH <= 0 || H % KH != 0 || P <= 0 || PS <= 0 || n_pages <= 0 ||
+      n_splits <= 0 || pps <= 0 || (long long)n_splits * pps < P ||
+      acc == nullptr || m == nullptr || l == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  const LaunchFn f{q, k_pages, v_pages, page_table, lens, nullptr,
+                   static_cast<float*>(acc), static_cast<float*>(m),
+                   static_cast<float*>(l), B, H, KH, P, PS, n_pages,
+                   n_splits, pps, true, static_cast<cudaStream_t>(stream),
+                   &err};
+  if (!repro::dispatch_dtype_gd(dtype, H / KH, D, f))
+    return (int)cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// One launch of repro::lse_merge_kernel over f32 partials acc [R, n_slots,
+// G, D], m and l [R, n_slots, G] (R = rows / G): out [rows, D] in dtype,
+// the normalised merge of every row's slots (0 where all are empty).
+int repro_lse_merge(const void* acc, const void* m, const void* l, void* out,
+                    int rows, int G, int n_slots, int D, int dtype,
+                    void* stream) {
+  if (rows <= 0 || G <= 0 || rows % G != 0 || n_slots <= 0 || D <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  const MergeFn f{static_cast<const float*>(acc), static_cast<const float*>(m),
+                  static_cast<const float*>(l), out, rows, G, n_slots, D,
+                  static_cast<cudaStream_t>(stream), &err};
+  if (dtype == 0) {
+    f.template operator()<float>();
+  } else if (dtype == 1) {
+    f.template operator()<__nv_bfloat16>();
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)err;
 }
 

@@ -93,6 +93,14 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        part = lib.repro_paged_decode_partials
+        part.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 \
+            + [ctypes.c_void_p]
+        part.restype = ctypes.c_int
+        merge = lib.repro_lse_merge
+        merge.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        merge.restype = ctypes.c_int
         occ = lib.repro_paged_decode_occupancy
         occ.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 4
         occ.restype = ctypes.c_int
@@ -198,6 +206,126 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lens):
 
 
 paged_decode_attention.launches = 0
+
+
+def paged_decode_partials_plain(q, k_pages, v_pages, page_table, lens,
+                                n_splits: int = 1, pps: int = 0):
+    """Every split's softmax partial in plain PyTorch, f32: split si
+    covers pages [si * pps, (si + 1) * pps) of each lane's table (pps 0:
+    one split of all P pages). Returns acc [B, KH, ns, G, D], m and l
+    [B, KH, ns, G]: m the split's largest score (natural log units, -inf
+    for a split with no valid token), l = sum exp(s - m), acc = sum
+    exp(s - m) v (both 0 for an empty split)."""
+    B, H, D = q.shape
+    _, PS, KH, _ = k_pages.shape
+    P = page_table.shape[1]
+    G = H // KH
+    pps = pps or P
+    L = pps * PS
+    T = n_splits * L
+    idx = page_table.long()
+    k = k_pages[idx].reshape(B, P * PS, KH, D).float()
+    v = v_pages[idx].reshape(B, P * PS, KH, D).float()
+    if T > P * PS:
+        pad = (0, 0, 0, 0, 0, T - P * PS)
+        k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+    k, v = k[:, :T], v[:, :T]
+    qg = q.reshape(B, KH, G, D).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k) * (D ** -0.5)
+    s = s.reshape(B, KH, G, n_splits, L).transpose(2, 3)     # [B,KH,ns,G,L]
+    mask = (torch.arange(T, device=q.device)[None, :]
+            < lens.to(q.device)[:, None]).reshape(B, 1, n_splits, 1, L)
+    s = s.masked_fill(~mask, float("-inf"))
+    m = s.amax(-1)
+    m_safe = torch.where(m == float("-inf"), 0.0, m)
+    p = torch.exp(s - m_safe[..., None])
+    vs = v.reshape(B, n_splits, L, KH, D).permute(0, 3, 1, 2, 4)
+    acc = torch.einsum("bhngl,bhnld->bhngd", p, vs)
+    return acc, m, p.sum(-1)
+
+
+def paged_decode_partials(q, k_pages, v_pages, page_table, lens):
+    """The split kernel's f32 partials, with its merge skipped: acc
+    [B, KH, ns, G, D], m and l [B, KH, ns, G], for the kernel's own split
+    plan (``plan_for``); on CPU tensors the plain version with one split.
+    Same arguments as ``paged_decode_attention``."""
+    if q.device.type == "cpu":
+        return paged_decode_partials_plain(q, k_pages, v_pages, page_table,
+                                           lens)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_partials: no kernel for "
+                         f"{q.device.type} tensors")
+    _check_cuda(q, k_pages, v_pages, page_table, lens)
+    B, H, D = q.shape
+    n_pages, PS, KH, _ = k_pages.shape
+    P = page_table.shape[1]
+    G = H // KH
+    n_splits, pps = plan_for(q, k_pages, page_table)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc = torch.empty((B, KH, n_splits, G, D), **f32)
+    m = torch.empty((B, KH, n_splits, G), **f32)
+    l = torch.empty((B, KH, n_splits, G), **f32)
+    if B == 0:
+        return acc, m, l
+    lib = _lib()
+    err = lib.repro_paged_decode_partials(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), lens.data_ptr(), acc.data_ptr(),
+        m.data_ptr(), l.data_ptr(), B, H, KH, D, P, PS, n_pages, n_splits,
+        pps, _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, err, "paged_decode_partials launch")
+    paged_decode_partials.launches += 1
+    return acc, m, l
+
+
+paged_decode_partials.launches = 0
+
+
+def lse_merge_partials_plain(acc, m, l, dtype):
+    """The torch ``lse_merge`` over the slot axis: acc [B, KH, n, G, D],
+    m and l [B, KH, n, G] -> [B, KH * G, D] in ``dtype``."""
+    from .decode_attention import lse_merge
+    B, KH, _, G, D = acc.shape
+    o = lse_merge(acc, m[..., None], l[..., None])
+    return o.reshape(B, KH * G, D).to(dtype)
+
+
+def lse_merge_partials(acc, m, l, dtype):
+    """Merge the f32 partials of every slot (splits of one or more shards,
+    concatenated along axis 2): acc [B, KH, n, G, D], m and l
+    [B, KH, n, G] -> [B, KH * G, D] in ``dtype``, in one launch of
+    ``lse_merge_kernel`` on a card; the plain version on CPU tensors."""
+    if acc.device.type == "cpu":
+        return lse_merge_partials_plain(acc, m, l, dtype)
+    if acc.device.type != "cuda":
+        raise ValueError(f"lse_merge_partials: no kernel for "
+                         f"{acc.device.type} tensors")
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"lse_merge_partials: dtype {dtype} not in "
+                        f"{tuple(_DTYPE_CODE)}")
+    for name, t in (("acc", acc), ("m", m), ("l", l)):
+        if t.device != acc.device or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"lse_merge_partials: {name} must be a "
+                             "contiguous float32 tensor on acc's device")
+    B, KH, n, G, D = acc.shape
+    if m.shape != acc.shape[:4] or l.shape != acc.shape[:4]:
+        raise ValueError("lse_merge_partials: m/l do not match acc")
+    out = torch.empty((B, KH * G, D), dtype=dtype, device=acc.device)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    err = lib.repro_lse_merge(
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(),
+        B * KH * G, G, n, D, _DTYPE_CODE[dtype],
+        torch.cuda.current_stream(acc.device).cuda_stream)
+    build.check(lib, err, "lse_merge_partials launch")
+    lse_merge_partials.launches += 1
+    return out
+
+
+lse_merge_partials.launches = 0
 
 
 def occupancy(dtype: torch.dtype, G: int, D: int,

@@ -8,6 +8,10 @@ Runs on the card (``--device cuda``, the default) unless asked for the
 CPU. Without ``--reduced`` the config is served at its full width (real
 forwards of randomly initialized weights, drawn from ``--seed``);
 ``--reduced`` applies ``configs.reduced`` for a CPU-sized smoke run.
+``--chips-per-instance 2,1`` makes instance 0 a tensor-parallel instance
+over 2 devices (the mesh-of-meshes, ``serving/cluster.py``): on the CPU
+the shards are emulated; on CUDA it needs as many visible cards as the
+instances take in all, and raises with fewer.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--chips-per-instance", default=None,
                     help="comma list of TP degrees, one per instance "
-                         "(not ported yet: must be omitted)")
+                         "(one value: every instance)")
     ap.add_argument("--device", default="cuda",
                     help="torch device every instance runs on")
     ap.add_argument("--reduced", action="store_true",
@@ -109,8 +113,9 @@ def report(args: argparse.Namespace, res: Dict) -> None:
     lats = sorted(r.latency() for r in done)
     reused = sum(e.stats["reused_tokens"] for e in cl.engines.values())
     prefilled = sum(e.stats["prefilled_tokens"] for e in cl.engines.values())
+    chips = [e.chips for e in cl.engines.values()]
     print(f"policy={args.policy} finished={len(done)}/{len(reqs)} "
-          f"wall={wall:.1f}s device={args.device}")
+          f"wall={wall:.1f}s device={args.device} chips={chips}")
     print(f"virtual latency avg={np.mean(lats):.3f}s "
           f"p99={lats[int(len(lats)*0.99)]:.3f}s")
     print(f"prefix reuse: {reused} tokens reused, {prefilled} prefilled "

@@ -1,0 +1,277 @@
+"""Divisibility-aware sharding policy: logical axes -> PartitionSpecs
+(counterpart of the JAX package's ``launch/sharding.py``), and the
+shard layout of a tensor-parallel serving instance.
+
+Every parameter leaf carries logical axis names (``bridge.param_specs``);
+a ``Policy`` maps them onto mesh axes through ordered preference lists.
+An axis candidate is taken only if (a) every mesh axis in it exists,
+(b) the dim divides the combined mesh-axis size, and (c) none of its
+mesh axes is already used by another dim of the same tensor. Otherwise
+the next preference is tried; an exhausted list replicates the dim.
+
+A PartitionSpec is a plain tuple here: one entry per dim (a mesh axis
+name, a tuple of names, or None), with the entries the reference's
+functions give (``Policy.pspec`` drops trailing Nones, the pool and span
+specs keep one entry per dim). The rules for "experts",
+"halfexpert", "expert_ff" and "inner" are the reference's, kept for the
+MoE and Mamba stacks that are not ported yet.
+
+On a serve submesh ("data", "model") = (1, tp) only the "model" axis
+splits anything: ``shard_params`` cuts every leaf along the dims whose
+spec names "model" into tp contiguous pieces, one tensor per shard on
+its shard's device; the whole tensor is not kept. ``ShardPlan`` records
+what the model math needs to know of the layout: which of the heads,
+kv heads, ff and vocab dims are split, and which arm of ``pool_pspec``
+the paged KV pool takes.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+
+from ..bridge import Spec
+from .mesh import Mesh, axis_size
+
+Pytree = Any
+AxisPref = Union[str, Tuple[str, ...]]
+PSpec = Tuple[Optional[Union[str, Tuple[str, ...]]], ...]
+
+
+def _norm(pref: AxisPref) -> Tuple[str, ...]:
+    return (pref,) if isinstance(pref, str) else tuple(pref)
+
+
+@dataclass(frozen=True)
+class Policy:
+    rules: Dict[str, Tuple[AxisPref, ...]]
+
+    def pspec(self, spec: Spec, mesh: Mesh) -> PSpec:
+        used: set = set()
+        out: List[Optional[Union[str, Tuple[str, ...]]]] = []
+        for dim, name in zip(spec.shape, spec.axes):
+            picked = None
+            for pref in self.rules.get(name, ()):  # type: ignore[arg-type]
+                axes = _norm(pref)
+                if not all(a in mesh.shape for a in axes):
+                    continue
+                if any(a in used for a in axes):
+                    continue
+                if dim % axis_size(mesh, axes) != 0:
+                    continue
+                picked = axes[0] if len(axes) == 1 else tuple(axes)
+                used.update(axes)
+                break
+            out.append(picked)
+        while out and out[-1] is None:
+            out.pop()
+        return tuple(out)
+
+
+def serve_policy(mesh: Mesh, param_bytes: int,
+                 fsdp_bytes_per_chip: int = 6 << 30) -> Policy:
+    """TP over "model"; a model whose TP shard would still exceed
+    ``fsdp_bytes_per_chip`` also puts its embed dim on "data" (of size 1
+    on a serve submesh, so nothing more is split)."""
+    tp = axis_size(mesh, "model")
+    big = param_bytes // tp > fsdp_bytes_per_chip
+    rules = {
+        "vocab": ("model",),
+        "heads": ("model",),
+        "kv_heads": ("model",),
+        "ff": ("model",),
+        "experts": ("model",),
+        "expert_ff": ((("model", "data"), ("model",), ("data",))
+                      if big else (("model",),)),
+        "expert_in": (),
+        "halfexpert": ("model",),
+        "expert_ff_fsdp": (("data",) if big else ()),
+        "inner": ("model",),
+    }
+    if big:
+        rules["embed"] = ("data",)
+    return Policy(rules=rules)
+
+
+def _walk(tree: Pytree, fn) -> Pytree:
+    if isinstance(tree, Spec):
+        return fn(tree)
+    return {k: _walk(v, fn) for k, v in tree.items()}
+
+
+def param_pspecs(specs: Pytree, mesh: Mesh, policy: Policy) -> Pytree:
+    return _walk(specs, lambda s: policy.pspec(s, mesh))
+
+
+def pool_pspec(shape: Tuple[int, ...], mesh: Mesh) -> PSpec:
+    """PartitionSpec of one paged-pool leaf [n_pages, PS, KH, D], each arm
+    guarded by divisibility:
+      1. head-wise ("model" on KH): each shard owns KH/tp kv heads of
+         every page;
+      2. slot-wise ("model" on PS), the GQA fallback when tp does not
+         divide KH: heads replicate and each shard owns PS/tp token slots
+         of every page (distributed flash-decoding over the slot shards);
+      3. page-wise ("model" on n_pages) when PS does not divide either;
+      4. replicated."""
+    n_pages, ps, kh, _d = shape
+    tp = axis_size(mesh, "model")
+    if tp <= 1:
+        return (None, None, None, None)
+    if kh % tp == 0:
+        return (None, None, "model", None)
+    if ps % tp == 0:
+        return (None, "model", None, None)
+    if n_pages % tp == 0:
+        return ("model", None, None, None)
+    return (None, None, None, None)
+
+
+def span_pspec(shape: Tuple[int, ...], mesh: Mesh) -> PSpec:
+    """PartitionSpec of a token-granular KV span [..., KH, D] (the host
+    tier's copies): only the head shard carries over from
+    ``pool_pspec``; slot- and page-sharded pools replicate the span."""
+    kh = shape[-2]
+    tp = axis_size(mesh, "model")
+    if tp > 1 and kh % tp == 0:
+        return (None,) * (len(shape) - 2) + ("model", None)
+    return (None,) * len(shape)
+
+
+def _model_dims(pspec: PSpec) -> List[int]:
+    """The dims a spec splits over "model"."""
+    return [i for i, e in enumerate(pspec)
+            if e is not None and "model" in _norm(e)]
+
+
+def _piece(t: torch.Tensor, dims: Sequence[int], s: int, tp: int,
+           device) -> torch.Tensor:
+    """Shard s's contiguous piece of t on ``device``: a fresh tensor."""
+    for d in dims:
+        n = t.shape[d] // tp
+        t = t.narrow(d, s * n, n)
+    out = torch.empty(t.shape, dtype=t.dtype, device=device)
+    return out.copy_(t)
+
+
+def shard_params(params: Pytree, specs: Pytree, mesh: Mesh,
+                 policy: Policy) -> List[Pytree]:
+    """One parameter tree per shard, each leaf shard s's piece along the
+    dims its spec puts on "model" (the whole leaf where it has none), a
+    fresh tensor on shard s's device."""
+    tp = mesh.size
+    pspecs = param_pspecs(specs, mesh, policy)
+
+    def walk(p, ps, s):
+        if isinstance(p, dict):
+            return {k: walk(p[k], ps[k], s) for k in p}
+        return _piece(p, _model_dims(ps), s, tp, mesh.devices[s])
+
+    return [walk(params, pspecs, s) for s in range(tp)]
+
+
+def unshard_params(shards: Sequence[Pytree], specs: Pytree, mesh: Mesh,
+                   policy: Policy) -> Pytree:
+    """Inverse of ``shard_params``: the whole tree on shard 0's device
+    (replicated leaves from shard 0)."""
+    pspecs = param_pspecs(specs, mesh, policy)
+    dev0 = mesh.devices[0]
+
+    def walk(parts, ps):
+        if isinstance(parts[0], dict):
+            return {k: walk([p[k] for p in parts], ps[k]) for k in parts[0]}
+        t = [p.to(dev0) for p in parts]
+        dims = _model_dims(ps)
+        if not dims:
+            return t[0].clone()
+        assert len(dims) == 1, dims
+        return torch.cat(t, dim=dims[0])
+
+    return walk(list(shards), pspecs)
+
+
+def tree_bytes(tree: Pytree) -> int:
+    """Bytes held by a tree of tensors (one shard's parameters or pool)."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+# ---------------------------------------------------------------------------
+# the shard layout of a serving instance
+# ---------------------------------------------------------------------------
+
+POOL_MODES = {(None, None, "model", None): "head",
+              (None, "model", None, None): "slot",
+              ("model", None, None, None): "page",
+              (None, None, None, None): "rep"}
+
+
+@dataclass(frozen=True)
+class ShardPlan:
+    """How one tensor-parallel instance lays its model and pool over its
+    submesh. ``heads``/``kv_heads``/``ff``/``vocab``: whether that dim of
+    the weights is split over the shards (else replicated). ``pool``:
+    the arm of ``pool_pspec`` the KV pool [n_pages, page_size, KH, D]
+    takes ("head", "slot", "page" or "rep")."""
+    mesh: Mesh
+    heads: bool
+    kv_heads: bool
+    ff: bool
+    vocab: bool
+    pool: str
+    n_pages: int
+    page_size: int
+
+    @property
+    def tp(self) -> int:
+        return self.mesh.size
+
+    @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        return self.mesh.devices
+
+    def local_pool_shape(self, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        """A shard's leaf shape for a pool leaf [n_pages, PS, KH, D]."""
+        n, ps, kh, d = shape
+        tp = self.tp
+        return {"head": (n, ps, kh // tp, d), "slot": (n, ps // tp, kh, d),
+                "page": (n // tp, ps, kh, d), "rep": (n, ps, kh, d)}[self.pool]
+
+    @property
+    def slot_size(self) -> int:
+        """Token slots of a page that one shard holds."""
+        return self.page_size // self.tp if self.pool == "slot" \
+            else self.page_size
+
+    @property
+    def pages_per_shard(self) -> int:
+        return self.n_pages // self.tp if self.pool == "page" \
+            else self.n_pages
+
+
+def shard_plan(cfg, mesh: Mesh, n_pages: int, page_size: int,
+               policy: Optional[Policy] = None) -> ShardPlan:
+    """The layout of ``cfg`` served on ``mesh`` with a pool of n_pages
+    pages of page_size tokens, read off the PartitionSpecs that
+    ``policy`` (default: ``serve_policy``) gives its leaves."""
+    from ..bridge import param_bytes, param_specs
+    specs = param_specs(cfg)
+    policy = policy or serve_policy(mesh, param_bytes(cfg))
+    ps = param_pspecs(specs, mesh, policy)
+    attn, ffn = ps["stack"]["p0"]["attn"], ps["stack"]["p0"]["ffn"]
+
+    def split(pspec, dim):
+        return dim in _model_dims(pspec)
+
+    pool = POOL_MODES[pool_pspec((n_pages, page_size, cfg.n_kv_heads,
+                                  cfg.head_dim), mesh)]
+    plan = ShardPlan(mesh=mesh, heads=split(attn["wq"], 2),
+                     kv_heads=split(attn["wk"], 2), ff=split(ffn["wg"], 2),
+                     vocab=split(ps["embed"]["tok"], 0), pool=pool,
+                     n_pages=n_pages, page_size=page_size)
+    if plan.kv_heads != (pool == "head"):
+        raise ValueError(f"kv-head split {plan.kv_heads} disagrees with the "
+                         f"{pool}-wise pool")
+    return plan

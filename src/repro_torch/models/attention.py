@@ -13,6 +13,26 @@ All functions take the JAX package's layouts: q [B, Sq, H, D], k/v
 [B, Skv, KH, D] for the dense forms, the page pool [n_pages, PS, KH, D]
 for the paged ones, with GQA group G = H // KH. Scores are float32 and
 masked with NEG_INF, as in the reference.
+
+The ``*_tp`` forms serve the paged pool of a tensor-parallel instance on
+each arm of ``launch/sharding.py::pool_pspec`` (per-shard lists, one
+entry per shard):
+  * head-wise: each shard runs the paged kernel on its KH/tp kv heads
+    and its H/tp q heads;
+  * slot-wise: each shard holds PS/tp slots of every page; read as pages
+    of PS/tp slots, a lane's valid tokens on shard s are a prefix of its
+    own pages (``slot_lens``). Every shard runs the paged kernel as a
+    partials launch for all H q heads (gathered when split), the partials
+    are concatenated along the split axis on shard 0 and ONE launch of
+    the kernels' ``lse_merge_kernel`` merges splits and shards together.
+    An empty shard (len 0: every padding lane's shard but shard 0)
+    writes m -inf, l 0 and weighs nothing. The chunk half gathers the
+    slot shards of its table rows;
+  * page-wise and replicated: the pool is gathered into a replicated
+    view inside the dispatch and each shard attends its own q heads.
+A shard whose q heads are split while the kv heads are replicated reads,
+for its local head j (global head s * H/tp + j), kv head
+(s * H/tp + j) // G (``kv_heads_for``).
 """
 
 from __future__ import annotations
@@ -22,7 +42,10 @@ from typing import Optional
 import torch
 
 from ..kernels.decode_attention import decode_attention as _split_k_decode
-from ..kernels.paged_attention import paged_decode_attention
+from ..kernels.paged_attention import (lse_merge_partials,
+                                       paged_decode_attention,
+                                       paged_decode_partials)
+from ..launch import mesh as M
 
 NEG_INF = -1e30
 
@@ -276,3 +299,138 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
                                    q_offset=q_offset, q_block=q_block,
                                    kv_block=min(kv_block, k.shape[1]))
     raise ValueError(f"unknown attention impl {impl!r}")
+
+
+# ---------------------------------------------------------------------
+# tensor-parallel paged forms
+# ---------------------------------------------------------------------
+
+def heads_range(plan, s: int, H: int):
+    """(first global q head, count) of shard s."""
+    if plan.heads:
+        n = H // plan.tp
+        return s * n, n
+    return 0, H
+
+
+def slot_lens(lens, s: int, page_size: int, slot_size: int):
+    """Valid tokens of slot shard s for lanes of ``lens`` tokens: with
+    p = (len - 1) // PS the lane's last page, every earlier page gives
+    the shard all its slot_size slots and page p gives
+    clamp(len - p * PS - s * slot_size, 0, slot_size). int32."""
+    lens = lens.long()
+    p = torch.div(lens - 1, page_size, rounding_mode="floor")
+    n = p * slot_size + torch.clamp(lens - p * page_size - s * slot_size,
+                                    0, slot_size)
+    return torch.clamp(n, min=0).to(torch.int32)
+
+
+def kv_heads_for(k, lo: int, n: int, G: int):
+    """The kv heads (last but one axis of k, all KH of them) that q heads
+    [lo, lo + n) read, as a tensor whose head j // G' serves local q head
+    j; returns (k', G'). A contiguous range of whole groups, or one kv
+    head, is a slice; any other set an index_select with G' = 1."""
+    if lo % G == 0 and n % G == 0:
+        return k[..., lo // G:(lo + n) // G, :], G
+    if lo // G == (lo + n - 1) // G:
+        return k[..., lo // G:lo // G + 1, :], n
+    idx = torch.div(torch.arange(lo, lo + n, device=k.device), G,
+                    rounding_mode="floor")
+    return k.index_select(-2, idx), 1
+
+
+def _replicated_pools(pages, plan):
+    """Every shard's view of the whole pool ([n_pages, PS, KH, D] k and v)
+    for the page-wise and replicated arms: page shards all-gathered,
+    replicated pools as they are."""
+    if plan.pool == "rep":
+        return [(p["k"], p["v"]) for p in pages]
+    if plan.pool == "page":
+        ks = M.all_gather([p["k"] for p in pages], 0, plan.mesh)
+        vs = M.all_gather([p["v"] for p in pages], 0, plan.mesh)
+        return list(zip(ks, vs))
+    raise ValueError(f"no replicated view of a {plan.pool}-wise pool")
+
+
+def _kernel_heads(t, s: int, plan, H: int):
+    """kv_heads_for on shard s's whole-pool view, made contiguous for the
+    card's kernel (a slice of whole heads is one already)."""
+    KH = t.shape[-2]
+    lo, n = heads_range(plan, s, H)
+    sel, _ = kv_heads_for(t, lo, n, H // KH)
+    return sel if sel.device.type == "cpu" else sel.contiguous()
+
+
+def paged_attention_tp(qs, pages, page_table, lens, plan, H: int):
+    """``paged_attention`` over a sharded pool: qs [B, H_s, D] (the
+    shard's q heads), per-shard pools, page tables and lens. Returns the
+    per-shard outputs [B, H_s, D]."""
+    tp = plan.tp
+    if plan.pool == "head":
+        return [paged_attention(qs[s], pages[s]["k"], pages[s]["v"],
+                                page_table[s], lens[s]) for s in range(tp)]
+    if plan.pool == "slot":
+        qf = M.all_gather(qs, 1, plan.mesh) if plan.heads else qs
+        parts = [paged_decode_partials(
+            qf[s], pages[s]["k"], pages[s]["v"], page_table[s],
+            slot_lens(lens[s], s, plan.page_size, plan.slot_size))
+            for s in range(tp)]
+        acc, m, l = (M.gather([pt[i] for pt in parts], 2, plan.mesh)
+                     for i in range(3))
+        o = M.broadcast(lse_merge_partials(acc, m, l, qs[0].dtype),
+                        plan.mesh)
+        out = []
+        for s in range(tp):
+            lo, n = heads_range(plan, s, H)
+            out.append(o[s][:, lo:lo + n])
+        return out
+    views = _replicated_pools(pages, plan)
+    return [paged_attention(qs[s], _kernel_heads(views[s][0], s, plan, H),
+                            _kernel_heads(views[s][1], s, plan, H),
+                            page_table[s], lens[s]) for s in range(tp)]
+
+
+def _chunk_rows(pages, plan, table):
+    """Every shard's gathered table rows [L, P * PS, KH_s, D] of k and v
+    for the chunk half: its own rows (head-wise: its kv heads), the slot
+    shards' rows all-gathered, or rows of the replicated view."""
+    tp = plan.tp
+    out = []
+    if plan.pool in ("head", "slot"):
+        for name in ("k", "v"):
+            rows = [pages[s][name][table[s].long()] for s in range(tp)]
+            if plan.pool == "slot":             # [L, P, PS/tp, KH, D]
+                rows = M.all_gather(rows, 2, plan.mesh)
+            out.append([r.reshape(r.shape[0], -1, *r.shape[3:])
+                        for r in rows])
+        return list(zip(*out))
+    views = _replicated_pools(pages, plan)
+    res = []
+    for s, (k, v) in enumerate(views):
+        idx = table[s].long()
+        L = idx.shape[0]
+        res.append((k[idx].reshape(L, -1, *k.shape[2:]),
+                    v[idx].reshape(L, -1, *v.shape[2:])))
+    return res
+
+
+def mixed_paged_attention_tp(qcs, qds, pages, chunk_table, chunk_start,
+                             dec_table, dec_pos, plan, H: int):
+    """``mixed_paged_attention`` over a sharded pool (per-shard lists).
+    ``qds`` None: the chunk half alone (extend). Returns (ocs, ods)."""
+    rows = _chunk_rows(pages, plan, chunk_table)
+    ocs = []
+    for s, (qc, (kc, vc)) in enumerate(zip(qcs, rows)):
+        if plan.pool != "head":
+            lo, n = heads_range(plan, s, H)
+            G = H // kc.shape[-2]
+            kc, _ = kv_heads_for(kc, lo, n, G)
+            vc, _ = kv_heads_for(vc, lo, n, G)
+        C = qc.shape[1]
+        ocs.append(extend_attention(qc, kc, vc, chunk_start[s],
+                                    chunk_start[s] + C))
+    if qds is None:
+        return ocs, None
+    ods = paged_attention_tp(qds, pages, dec_table,
+                             [p + 1 for p in dec_pos], plan, H)
+    return ocs, ods

@@ -15,6 +15,24 @@ Page-table lookups clamp the page index to the table's width, as JAX's
 gathers clamp out-of-range indices; every such lookup is for a padded
 token whose write is redirected to the scratch page 0 or whose output
 is dropped.
+
+The ``*_tp`` forms are the shard-local math of a tensor-parallel
+instance (``launch/sharding.py::ShardPlan``): every argument that is a
+list holds one tensor (or tree) per shard, on its shard's device, and
+each collective the reference's GSPMD inserts is an explicit call of
+``launch/mesh.py``:
+  * embedding: ``tok`` split along the vocab; each shard looks up the
+    ids of its range, writes zeros for the others, and the parts are
+    all-reduced (exact);
+  * attention: q heads split when tp divides H, kv heads when it divides
+    KH (then the pool is head-wise), else replicated; ``wo`` split on
+    heads is row-parallel, its partial products all-reduced; with heads
+    replicated every shard computes the whole attention, no reduce;
+  * FFN: ``wg``/``wu`` column-parallel on ff, ``wd`` row-parallel with an
+    all-reduce; norms replicated;
+  * LM head: split along the vocab; each shard's (max, index) pair is
+    gathered and the lowest index among equal maxima kept, as argmax
+    keeps it.
 """
 
 from __future__ import annotations
@@ -24,8 +42,10 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..launch import mesh as M
 from .attention import attention, decode_attention, extend_attention, \
-    mixed_paged_attention, paged_attention
+    mixed_paged_attention, mixed_paged_attention_tp, paged_attention, \
+    paged_attention_tp
 from .common import rope
 
 Pages = Dict[str, torch.Tensor]
@@ -236,3 +256,181 @@ def embed_tokens(p, cfg, tokens):
 
 def head_matrix(p, cfg):
     return p["tok"].T if cfg.tie_embeddings else p["head"]
+
+
+# ---------------------------------------------------------------------
+# tensor-parallel (shard-local) forms
+# ---------------------------------------------------------------------
+
+def _vocab_range(plan, s: int, v_local: int) -> int:
+    """The first vocab id of shard s's slice (0 when not split)."""
+    return s * v_local if plan.vocab else 0
+
+
+def embed_tokens_tp(ps, cfg, tokens, plan):
+    """Per-shard embeddings of ``tokens`` (one replicated id tensor per
+    shard): each shard's rows of its vocab slice, zeros elsewhere,
+    all-reduced when the vocab is split."""
+    parts = []
+    for s, (p, toks) in enumerate(zip(ps, tokens)):
+        tok = p["tok"]
+        if not plan.vocab:
+            parts.append(F.embedding(toks, tok))
+            continue
+        ids = toks - _vocab_range(plan, s, tok.shape[0])
+        ok = (ids >= 0) & (ids < tok.shape[0])
+        e = F.embedding(torch.clamp(ids, 0, tok.shape[0] - 1), tok)
+        parts.append(torch.where(ok[..., None], e, torch.zeros_like(e)))
+    return M.all_reduce(parts, plan.mesh) if plan.vocab else parts
+
+
+def top1_logits_tp(hs, ps, cfg, plan) -> torch.Tensor:
+    """Greedy next tokens from per-shard (replicated) hidden states
+    [..., d] against the vocab-split head: each shard's max logit and its
+    global index, gathered in shard order; the first shard holding the
+    largest max wins, so equal maxima keep the lowest index. int32 on
+    shard 0's device."""
+    if not plan.vocab:
+        logits = (hs[0] @ head_matrix(ps[0], cfg)).float()
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    mx, ix = [], []
+    for s, (h, p) in enumerate(zip(hs, ps)):
+        w = head_matrix(p, cfg)
+        logits = (h @ w).float()
+        i = torch.argmax(logits, dim=-1, keepdim=True)
+        mx.append(torch.gather(logits, -1, i))
+        ix.append(i + _vocab_range(plan, s, w.shape[1]))
+    mx = M.gather(mx, -1, plan.mesh)
+    ix = M.gather(ix, -1, plan.mesh)
+    best = torch.argmax(mx, dim=-1, keepdim=True)
+    return torch.gather(ix, -1, best)[..., 0].to(torch.int32)
+
+
+def _reduce_if(parts, split: bool, plan):
+    return M.all_reduce(parts, plan.mesh) if split else parts
+
+
+def mlp_tp(ps, cfg, hs, plan, step: bool = False):
+    """SwiGLU on every shard (its ff slice when split), all-reduced when
+    split. ``step``: the [B, d] form of the step paths."""
+    parts = []
+    for p, h in zip(ps, hs):
+        if step:
+            g = F.silu((h @ p["wg"]).float())
+            u = (h @ p["wu"]).float()
+            parts.append((g * u).to(h.dtype) @ p["wd"])
+        else:
+            parts.append(mlp_full(p, cfg, h))
+    return _reduce_if(parts, plan.ff, plan)
+
+
+def _rope_tp(cfg, q, k, positions):
+    """rope of one shard's q and k at ``positions`` (broadcast over
+    heads); step inputs [B, H, D] take positions [B]."""
+    if not cfg.rope_theta:
+        return q, k
+    if q.dim() == 3:
+        return (rope(q[:, None], positions[:, None], cfg.rope_theta)[:, 0],
+                rope(k[:, None], positions[:, None], cfg.rope_theta)[:, 0])
+    return rope(q, positions, cfg.rope_theta), rope(k, positions,
+                                                    cfg.rope_theta)
+
+
+def _write_kv_tp(pages, plan, s: int, pids, offs, k, v) -> None:
+    """Scatter shard s's new K/V rows into its pool: its head slice
+    (head-wise), the slots it owns at their local slot (slot-wise: other
+    tokens go to the scratch page 0), the pages it owns at their local id
+    (page-wise), or all of them (replicated). pids/offs: global page ids
+    and slots."""
+    if plan.pool in ("head", "rep"):
+        _write_kv(pages, pids, offs, k, v)
+    elif plan.pool == "slot":
+        ps_loc = plan.slot_size
+        own = torch.div(offs, ps_loc, rounding_mode="floor") == s
+        _write_kv(pages, torch.where(own, pids, torch.zeros_like(pids)),
+                  offs % ps_loc, k, v)
+    else:
+        n_loc = plan.pages_per_shard
+        own = torch.div(pids, n_loc, rounding_mode="floor") == s
+        _write_kv(pages, pids[own] % n_loc, offs[own], k[own], v[own])
+
+
+def _out_proj_tp(ps, os_, plan, eq: str):
+    """Row-parallel ``wo`` (all-reduced) when heads are split, else every
+    shard's whole product."""
+    parts = [torch.einsum(eq, o, p["wo"]) for p, o in zip(ps, os_)]
+    return _reduce_if(parts, plan.heads, plan)
+
+
+def attn_step_paged_tp(ps, cfg, xs, pages, page_table, pos, plan):
+    """``attn_step_paged`` on every shard: xs, pages, page_table and pos
+    are per-shard lists. Returns (ys, pages)."""
+    qs = []
+    for s, (p, x) in enumerate(zip(ps, xs)):
+        q, k, v = _project_qkv(p, cfg, x)
+        q, k = _rope_tp(cfg, q, k, pos[s])
+        PS = plan.page_size
+        pids = _table_lookup(page_table[s],
+                             torch.arange(x.shape[0], device=x.device),
+                             pos[s], PS)
+        _write_kv_tp(pages[s], plan, s, pids, pos[s] % PS, k, v)
+        qs.append(q)
+    os_ = paged_attention_tp(qs, pages, page_table,
+                             [p_ + 1 for p_ in pos], plan, cfg.n_heads)
+    return _out_proj_tp(ps, os_, plan, "bhk,hkd->bd"), pages
+
+
+def attn_mixed_paged_tp(ps, cfg, xc, xd, pages, chunk_table, chunk_start,
+                        chunk_len, dec_table, dec_pos, plan):
+    """``attn_mixed_paged`` on every shard (per-shard lists). Returns
+    (ycs, yds, pages)."""
+    PS = plan.page_size
+    qcs, qds = [], []
+    for s, p in enumerate(ps):
+        Lc, C, _ = xc[s].shape
+        Ld = xd[s].shape[0]
+        dev = xc[s].device
+        qc, kc, vc = _project_qkv(p, cfg, xc[s])
+        qd, kd, vd = _project_qkv(p, cfg, xd[s])
+        cpos = chunk_start[s][:, None] + torch.arange(C, device=dev)[None, :]
+        qc, kc = _rope_tp(cfg, qc, kc, cpos)
+        qd, kd = _rope_tp(cfg, qd, kd, dec_pos[s])
+        valid = torch.arange(C, device=dev)[None, :] < chunk_len[s][:, None]
+        lidx = torch.arange(Lc, device=dev)[:, None]
+        zero = torch.zeros((), dtype=cpos.dtype, device=dev)
+        cpids = torch.where(valid, _table_lookup(chunk_table[s], lidx, cpos,
+                                                 PS), zero)
+        coffs = torch.where(valid, cpos % PS, zero)
+        dpids = _table_lookup(dec_table[s], torch.arange(Ld, device=dev),
+                              dec_pos[s], PS)
+        _write_kv_tp(pages[s], plan, s, cpids, coffs, kc, vc)
+        _write_kv_tp(pages[s], plan, s, dpids, dec_pos[s] % PS, kd, vd)
+        qcs.append(qc)
+        qds.append(qd)
+    ocs, ods = mixed_paged_attention_tp(qcs, qds, pages, chunk_table,
+                                        chunk_start, dec_table, dec_pos,
+                                        plan, cfg.n_heads)
+    return (_out_proj_tp(ps, ocs, plan, "...hk,hkd->...d"),
+            _out_proj_tp(ps, ods, plan, "bhk,hkd->bd"), pages)
+
+
+def attn_extend_paged_tp(ps, cfg, xs, pages, page_table, start, plan):
+    """``attn_extend_paged`` on every shard: the chunk's KV scattered
+    into each shard's pool, then the chunk half of the mixed attention.
+    Returns (ys, pages)."""
+    PS = plan.page_size
+    qs = []
+    for s, p in enumerate(ps):
+        B, C, _ = xs[s].shape
+        dev = xs[s].device
+        q, k, v = _project_qkv(p, cfg, xs[s])
+        positions = start[s][:, None] + torch.arange(C, device=dev)[None, :]
+        q, k = _rope_tp(cfg, q, k, positions)
+        pids = _table_lookup(page_table[s],
+                             torch.arange(B, device=dev)[:, None], positions,
+                             PS)
+        _write_kv_tp(pages[s], plan, s, pids, positions % PS, k, v)
+        qs.append(q)
+    os_, _ = mixed_paged_attention_tp(qs, None, pages, page_table, start,
+                                      None, None, plan, cfg.n_heads)
+    return _out_proj_tp(ps, os_, plan, "...hk,hkd->...d"), pages

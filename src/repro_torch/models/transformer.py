@@ -12,6 +12,14 @@ window for a sliding-window stack: a ring buffer), the KV pool
 physical layer. Both are updated in place. Recurrent (rwkv, mamba),
 cross-attention and MoE positions are not ported and raise
 ``NotImplementedError``.
+
+The paged forwards also serve a tensor-parallel instance: given a
+``plan`` (``launch/sharding.py::ShardPlan``), ``params`` and ``pages``
+are lists with one tree per shard (``sharding.shard_params`` and
+``paged_cache_specs(..., plan=plan)``), and the hidden states and batch
+tensors lists with one tensor per shard. The loop over layers is the
+same; inside each layer the shard-local math of ``layers.*_tp`` loops
+over the shards and all-reduces where the reference's GSPMD would.
 """
 
 from __future__ import annotations
@@ -99,15 +107,24 @@ def paged_servable(cfg) -> bool:
 
 
 def paged_cache_specs(cfg, n_pages: int, page_size: int,
-                      device) -> Pytree:
+                      device, plan=None) -> Pytree:
     """Allocate the per-layer KV page pools (zeros): one
     [n_pages, page_size, KH, D] k/v pair per (attention position, group)
     — per physical layer. The pool is instance-wide: requests address it
-    through page tables."""
+    through page tables. With a ``plan`` (tensor-parallel instance): one
+    such tree per shard, on its device, each leaf the shard's piece
+    (``ShardPlan.local_pool_shape``); ``device`` is then unused."""
     if not paged_servable(cfg):
         raise ValueError(f"{cfg.name}: stack is not paged-servable")
     dt = getattr(torch, cfg.dtype)
     shape = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    if plan is not None:
+        shape = plan.local_pool_shape(shape)
+        return [_pool_tree(cfg, shape, dt, d) for d in plan.devices]
+    return _pool_tree(cfg, shape, dt, device)
+
+
+def _pool_tree(cfg, shape, dt, device) -> Pytree:
     return {f"p{j}": {f"g{g}": {"k": torch.zeros(shape, dtype=dt,
                                                  device=device),
                                 "v": torch.zeros(shape, dtype=dt,
@@ -258,11 +275,15 @@ def _pos_step_paged(p, cfg, pos: PosPlan, x, pages, page_table, position):
     return _ffn_step_tail(p, cfg, pos, x + y), pages
 
 
-def forward_step_paged(params, cfg, x, pages, page_table, position
-                       ) -> Tuple[torch.Tensor, Pytree]:
+def forward_step_paged(params, cfg, x, pages, page_table, position,
+                       plan=None) -> Tuple[torch.Tensor, Pytree]:
     """x: [B, d] one embedded token per lane; ``pages`` the instance-wide
     pool (updated in place); page_table [B, P]; position [B] context
-    lengths. Returns (hidden [B, d], pages)."""
+    lengths. Returns (hidden [B, d], pages). With a shard ``plan``:
+    per-shard lists (module doc)."""
+    if plan is not None:
+        return _forward_tp(params, cfg, pages, plan, "step", x, None,
+                           page_table, position)
     plan = layer_plan(cfg)
     for g in range(cfg.n_groups):
         for j, pos in enumerate(plan):
@@ -287,14 +308,21 @@ def _pos_mixed_paged(p, cfg, pos_plan: PosPlan, xc, xd, pages, chunk_table,
 
 
 def forward_mixed_paged(params, cfg, xc, xd, pages, chunk_table,
-                        chunk_start, chunk_len, dec_table, dec_pos
+                        chunk_start, chunk_len, dec_table, dec_pos,
+                        plan=None
                         ) -> Tuple[torch.Tensor, torch.Tensor, Pytree]:
     """Fused ragged iteration: every query token of the scheduling step
     in one forward. ``xc`` [Lc, C, d] embeds the prefill chunks padded to
     C (lane l: chunk_len[l] real tokens from chunk_start[l]); ``xd``
     [Ld, d] embeds the decode lanes (fed token at dec_pos[l]). Padding
     lanes carry all-scratch table rows. Returns (hidden_c [Lc, C, d],
-    hidden_d [Ld, d], pages)."""
+    hidden_d [Ld, d], pages). With a shard ``plan``: per-shard lists
+    (module doc)."""
+    if plan is not None:
+        (xc, xd), pages = _forward_tp(
+            params, cfg, pages, plan, "mixed", xc, xd, chunk_table,
+            chunk_start, chunk_len, dec_table, dec_pos)
+        return xc, xd, pages
     plan = layer_plan(cfg)
     for g in range(cfg.n_groups):
         for j, pos in enumerate(plan):
@@ -314,12 +342,15 @@ def _pos_extend_paged(p, cfg, pos: PosPlan, x, pages, page_table, start):
     return _ffn_extend_tail(p, cfg, pos, x + y), pages
 
 
-def forward_extend_paged(params, cfg, x, pages, page_table, start
-                         ) -> Tuple[torch.Tensor, Pytree]:
+def forward_extend_paged(params, cfg, x, pages, page_table, start,
+                         plan=None) -> Tuple[torch.Tensor, Pytree]:
     """Chunked prefill against the page pool: x [B, C, d] new embedded
     tokens from absolute start position(s) ``start`` ([B]); pages and
     page_table as in forward_step_paged. Returns (hidden [B, C, d],
-    pages)."""
+    pages). With a shard ``plan``: per-shard lists (module doc)."""
+    if plan is not None:
+        return _forward_tp(params, cfg, pages, plan, "extend", x, None,
+                           page_table, start)
     plan = layer_plan(cfg)
     for g in range(cfg.n_groups):
         for j, pos in enumerate(plan):
@@ -328,3 +359,57 @@ def forward_extend_paged(params, cfg, x, pages, page_table, start
                                      pages[f"p{j}"][f"g{g}"], page_table,
                                      start)
     return x, pages
+
+
+# ---------------------------------------------------------------------
+# tensor-parallel paged forwards
+# ---------------------------------------------------------------------
+
+def _norm_tp(ps, key: str, xs, eps):
+    return [rms_norm(x, p[key], eps) for p, x in zip(ps, xs)]
+
+
+def _add(*lists):
+    return [sum(xs[1:], xs[0]) for xs in zip(*lists)]
+
+
+def _ffn_tp(ps, cfg, xs, hs, plan, step: bool):
+    """The FFN half of one position on every shard: x + y + mlp(h) for a
+    parallel block (``hs`` the norm1 outputs, xs already x + y), else
+    x + mlp(norm2(x))."""
+    fs = [p["ffn"] for p in ps]
+    if cfg.parallel_block:
+        return _add(xs, L.mlp_tp(fs, cfg, hs, plan, step))
+    h2 = _norm_tp(ps, "norm2", xs, cfg.norm_eps)
+    return _add(xs, L.mlp_tp(fs, cfg, h2, plan, step))
+
+
+def _forward_tp(params, cfg, pages, plan, kind: str, x, xd, table, *rest):
+    """The paged forwards on a shard plan. ``kind``: "step" (x [B, d],
+    rest = (position,)), "extend" (x [B, C, d], rest = (start,)) or
+    "mixed" (x = xc, xd, table = chunk_table, rest = (chunk_start,
+    chunk_len, dec_table, dec_pos)). Returns (hidden, pages), hidden a
+    per-shard list or, for "mixed", the pair (hc, hd)."""
+    eps = cfg.norm_eps
+    for g in range(cfg.n_groups):
+        for j, pos in enumerate(layer_plan(cfg)):
+            _check_ported(pos)
+            ps = [_group(p[f"p{j}"], g) for p in params]
+            pg = [p[f"p{j}"][f"g{g}"] for p in pages]
+            attn = [p["attn"] for p in ps]
+            h = _norm_tp(ps, "norm1", x, eps)
+            if kind == "mixed":
+                hd = _norm_tp(ps, "norm1", xd, eps)
+                yc, yd, _ = L.attn_mixed_paged_tp(attn, cfg, h, hd, pg,
+                                                  table, *rest, plan)
+                x = _ffn_tp(ps, cfg, _add(x, yc), h, plan, False)
+                xd = _ffn_tp(ps, cfg, _add(xd, yd), hd, plan, True)
+                continue
+            if kind == "step":
+                y, _ = L.attn_step_paged_tp(attn, cfg, h, pg, table,
+                                            rest[0], plan)
+            else:
+                y, _ = L.attn_extend_paged_tp(attn, cfg, h, pg, table,
+                                              rest[0], plan)
+            x = _ffn_tp(ps, cfg, _add(x, y), h, plan, kind == "step")
+    return ((x, xd) if kind == "mixed" else x), pages

@@ -23,6 +23,15 @@ cache (``cache_specs`` layout, windowed stacks as ring buffers). The
 others return (nxt, cache_or_pages), the cache or pool they were given,
 updated in place; mixed_paged_spec returns (nxt, chunk_pred, pages),
 chunk_pred [Lc, C] the greedy token after every chunk position.
+
+Tensor-parallel instances: ``ModelAPI.shard_plan(mesh, n_pages,
+page_size)`` lays the model and its pool over a serve submesh
+(``launch/mesh.py``). Given that plan (``plan=``), the paged entry
+points take ``params`` and ``pages`` as one tree per shard
+(``launch/sharding.py::shard_params``, ``paged_cache_specs(...,
+plan=plan)``) and the batch tensors on shard 0's device (each shard
+reads them there or gets a copy); the results lie on shard 0's device.
+The step still makes one call, which loops over the shards inside.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import torch
 
 from .. import bridge
 from ..configs.base import ModelConfig
+from ..launch import mesh as M
 from . import layers as L
 from . import transformer as T
 from .common import rms_norm, top1_logits
@@ -62,14 +72,46 @@ class ModelAPI:
     def init(self, generator: torch.Generator, device) -> Pytree:
         return bridge.init_params(self.cfg, generator, device)
 
+    @property
+    def specs(self) -> Pytree:
+        """Shapes, init kinds and logical axes of every leaf."""
+        return bridge.param_specs(self.cfg)
+
+    @property
+    def n_bytes(self) -> int:
+        return bridge.param_bytes(self.cfg)
+
+    def shard_plan(self, mesh, n_pages: int, page_size: int):
+        """The layout of this model and a pool of n_pages x page_size on
+        ``mesh`` under ``serve_policy`` (``launch/sharding.py``)."""
+        from ..launch.sharding import shard_plan
+        return shard_plan(self.cfg, mesh, n_pages, page_size)
+
 
 def _build_decoder(cfg: ModelConfig) -> ModelAPI:
     def final(params, h):
         h = rms_norm(h, params["embed"]["final_norm"], cfg.norm_eps)
         return top1_logits(h, L.head_matrix(params["embed"], cfg))
 
+    def final_tp(params, hs, plan):
+        es = [p["embed"] for p in params]
+        hs = [rms_norm(h, e["final_norm"], cfg.norm_eps)
+              for h, e in zip(hs, es)]
+        return L.top1_logits_tp(hs, es, cfg, plan)
+
     def embed(params, tokens):
         return L.embed_tokens(params["embed"], cfg, tokens)
+
+    def rep(plan, batch: Dict) -> Dict:
+        """Every batch tensor on every shard (read-only)."""
+        return {k: M.replicate(v, plan.mesh) for k, v in batch.items()}
+
+    def embed_tp(params, plan, tokens):
+        return L.embed_tokens_tp([p["embed"] for p in params], cfg, tokens,
+                                 plan)
+
+    def stacks(params):
+        return [p["stack"] for p in params]
 
     def prefill(params, batch: Dict, *, attn_impl: str = "auto"):
         h, cache = T.forward_full(params["stack"], cfg,
@@ -89,44 +131,74 @@ def _build_decoder(cfg: ModelConfig) -> ModelAPI:
                                     batch["start"])
         return final(params, h[:, -1]), cache
 
-    def decode_paged(params, pages, batch: Dict):
+    def decode_paged(params, pages, batch: Dict, plan=None):
+        if plan is not None:
+            b = rep(plan, batch)
+            h, pages = T.forward_step_paged(
+                stacks(params), cfg, embed_tp(params, plan, b["tokens"]),
+                pages, b["page_table"], b["pos"], plan=plan)
+            return final_tp(params, h, plan), pages
         h, pages = T.forward_step_paged(params["stack"], cfg,
                                         embed(params, batch["tokens"]),
                                         pages, batch["page_table"],
                                         batch["pos"])
         return final(params, h), pages
 
-    def extend_paged(params, pages, batch: Dict):
+    def extend_paged(params, pages, batch: Dict, plan=None):
+        if plan is not None:
+            b = rep(plan, batch)
+            h, pages = T.forward_extend_paged(
+                stacks(params), cfg, embed_tp(params, plan, b["tokens"]),
+                pages, b["page_table"], b["start"], plan=plan)
+            return final_tp(params, [x[:, -1] for x in h], plan), pages
         h, pages = T.forward_extend_paged(params["stack"], cfg,
                                           embed(params, batch["tokens"]),
                                           pages, batch["page_table"],
                                           batch["start"])
         return final(params, h[:, -1]), pages
 
-    def mixed_hidden(params, pages, batch: Dict):
+    def lanes(hc, hd, chunk_len):
+        """Chunk lanes' last-valid-token states, then the decode lanes."""
+        last = torch.clamp(chunk_len - 1, min=0).long()
+        rows = torch.arange(hc.shape[0], device=hc.device)
+        return torch.cat([hc[rows, last], hd], dim=0)
+
+    def mixed_hidden(params, pages, batch: Dict, plan=None):
         """The fused forward; h packs chunk lanes' last-valid-token
         states first, then the decode lanes (the LM head runs on O(lanes)
-        gathered hidden states)."""
+        gathered hidden states). Per-shard lists with a ``plan``."""
+        if plan is not None:
+            b = rep(plan, batch)
+            hc, hd, pages = T.forward_mixed_paged(
+                stacks(params), cfg, embed_tp(params, plan,
+                                              b["chunk_tokens"]),
+                embed_tp(params, plan, b["dec_tokens"]), pages,
+                b["chunk_page_table"], b["chunk_start"], b["chunk_len"],
+                b["dec_page_table"], b["dec_pos"], plan=plan)
+            return hc, [lanes(c, d, n) for c, d, n in
+                        zip(hc, hd, b["chunk_len"])], pages
         hc, hd, pages = T.forward_mixed_paged(
             params["stack"], cfg, embed(params, batch["chunk_tokens"]),
             embed(params, batch["dec_tokens"]), pages,
             batch["chunk_page_table"], batch["chunk_start"],
             batch["chunk_len"], batch["dec_page_table"], batch["dec_pos"])
-        last = torch.clamp(batch["chunk_len"] - 1, min=0).long()
-        rows = torch.arange(hc.shape[0], device=hc.device)
-        return hc, torch.cat([hc[rows, last], hd], dim=0), pages
+        return hc, lanes(hc, hd, batch["chunk_len"]), pages
 
-    def mixed_paged(params, pages, batch: Dict):
-        _, h, pages = mixed_hidden(params, pages, batch)
-        return final(params, h), pages
+    def head(params, h, plan):
+        return final(params, h) if plan is None else final_tp(params, h,
+                                                              plan)
 
-    def mixed_paged_spec(params, pages, batch: Dict):
+    def mixed_paged(params, pages, batch: Dict, plan=None):
+        _, h, pages = mixed_hidden(params, pages, batch, plan)
+        return head(params, h, plan), pages
+
+    def mixed_paged_spec(params, pages, batch: Dict, plan=None):
         """``mixed_paged`` plus the verification head: chunk_pred
         [Lc, C], the greedy prediction after EVERY chunk position, with
         the same norm and head as the lane predictions (so
         chunk_pred[i, last_i] == nxt[i])."""
-        hc, h, pages = mixed_hidden(params, pages, batch)
-        return final(params, h), final(params, hc), pages
+        hc, h, pages = mixed_hidden(params, pages, batch, plan)
+        return head(params, h, plan), head(params, hc, plan), pages
 
     paged = T.paged_servable(cfg)
     return ModelAPI(
@@ -134,8 +206,8 @@ def _build_decoder(cfg: ModelConfig) -> ModelAPI:
         lambda b, s: T.cache_specs(cfg, b, s),
         decode_paged=decode_paged if paged else None,
         extend_paged=extend_paged if paged else None,
-        paged_cache_specs=((lambda n, ps, device:
-                            T.paged_cache_specs(cfg, n, ps, device))
+        paged_cache_specs=((lambda n, ps, device, plan=None:
+                            T.paged_cache_specs(cfg, n, ps, device, plan))
                            if paged else None),
         mixed_paged=mixed_paged if paged else None,
         mixed_paged_spec=mixed_paged_spec if paged else None)

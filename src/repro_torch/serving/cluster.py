@@ -1,8 +1,8 @@
 """ClusterRuntime: the real-engine distributed serving loop (counterpart
 of the JAX package's ``serving/cluster.py``).
 
-GlobalScheduler (E2) in front of N Engines, all on one ``device``.
-Virtual time advances per engine iteration. Engines run the paged fused
+GlobalScheduler (E2) in front of N Engines. Virtual time advances per
+engine iteration. Engines run the paged fused
 data plane, or the dense one with ``EngineConfig(paged=False)``.
 ``check_invariants`` reconciles the layers after any amount of
 rebalancing: pool refcounts, scheduler token accounting, and the global
@@ -20,7 +20,14 @@ ALIVE→SUSPECT→DEAD detection, retry with budget + exponential backoff
 into a terminal FAILED state, delayed notifications, periodic
 anti-entropy reconciliation. With no FaultConfig every hook is inert.
 
-Not ported yet: multi-chip instances (``chips_per_instance``).
+Multi-chip instances (``chips_per_instance``): the mesh-of-meshes. The
+devices are carved into disjoint groups (``launch/mesh.py::
+partition_devices``), one per instance: a k-chip instance is a
+tensor-parallel engine over its group, a 1-chip one a plain engine on
+its device. Each registers with E2 at its aggregate capacity (per-chip
+capacity x chips) and a cost model re-derived for its chip count
+(``CostModel.with_chips``). ``add_instance`` carves a multi-chip
+instance's group from the devices no instance owns yet.
 """
 
 from __future__ import annotations
@@ -30,10 +37,13 @@ import heapq
 import itertools
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import torch
+
 from ..core.cost_model import CostModel, cost_model_for
 from ..core.e2 import MigrationPlan
 from ..core.global_scheduler import GlobalScheduler, GlobalSchedulerConfig
 from ..core.request import Request, RequestState
+from ..launch.mesh import partition_devices, visible_devices
 from .engine import Engine, EngineConfig
 from .faults import FaultConfig, FaultInjector, InstanceCrashed
 from .telemetry import Telemetry
@@ -50,14 +60,20 @@ class ClusterRuntime:
                  retry_backoff: float = 0.0,
                  telemetry: Optional[Telemetry] = None,
                  chips_per_instance: Optional[Sequence[int]] = None,
-                 device="cuda"):
-        """Every instance shares the one card ``device``;
-        ``chips_per_instance`` must stay None (not ported yet)."""
-        if chips_per_instance is not None:
-            raise NotImplementedError("chips_per_instance (multi-chip "
-                                      "instances) is not ported yet")
+                 device="cuda", devices: Optional[Sequence] = None):
+        """``chips_per_instance`` None: every instance runs on the one
+        card ``device``. A list gives instance i's TP degree: the
+        ``devices`` (default: the visible cards; CPU shards when
+        ``device`` is the CPU; a list may repeat a card, which emulates a
+        submesh on it) are carved into disjoint groups, one per
+        instance, each instance registered at its aggregate capacity
+        with a cost model derived for its chip count."""
         self.policy = policy
         self.device = device
+        # the devices a multi-chip instance may take, and how many the
+        # instances hold (elastic add carves the next ones)
+        self._devices = list(devices) if devices is not None else None
+        self._device_ofs = 0
         # disabled telemetry is treated exactly like None
         self.telemetry = (telemetry if telemetry is not None
                           and telemetry.enabled else None)
@@ -77,15 +93,40 @@ class ClusterRuntime:
         self.faults = (FaultInjector(fault_config)
                        if fault_config is not None else None)
         self.engines: Dict[int, Engine] = {}
-        self.gs = GlobalScheduler(num_instances=num_instances,
-                                  cost_model=base_cm, config=gs_cfg)
-        for i in range(num_instances):
-            ec = dataclasses.replace(base, instance_id=i)
-            self.engines[i] = Engine(model_cfg, params, ec,
-                                     on_evict=self._notify_evictions,
-                                     device=device)
-            if self.faults is not None:
-                self.engines[i].attach_faults(self.faults)
+        if chips_per_instance is None:
+            self.gs = GlobalScheduler(num_instances=num_instances,
+                                      cost_model=base_cm, config=gs_cfg)
+            for i in range(num_instances):
+                ec = dataclasses.replace(base, instance_id=i)
+                self.engines[i] = Engine(model_cfg, params, ec,
+                                         on_evict=self._notify_evictions,
+                                         device=device)
+                if self.faults is not None:
+                    self.engines[i].attach_faults(self.faults)
+        else:
+            chips = [max(int(c), 1) for c in chips_per_instance]
+            if len(chips) != num_instances:
+                raise ValueError(
+                    f"chips_per_instance has {len(chips)} entries for "
+                    f"{num_instances} instances")
+            groups = partition_devices(chips, self._devices,
+                                       platform=self._platform)
+            self._device_ofs = sum(chips)
+            self.gs = GlobalScheduler(num_instances=0,
+                                      cost_model=base_cm, config=gs_cfg)
+            for i, (c, grp) in enumerate(zip(chips, groups)):
+                ec = dataclasses.replace(base, instance_id=i,
+                                         chips_per_instance=c)
+                self.engines[i] = Engine(
+                    model_cfg, params, ec, on_evict=self._notify_evictions,
+                    device=grp[0], devices=grp if c > 1 else None)
+                if self.faults is not None:
+                    self.engines[i].attach_faults(self.faults)
+                self.gs.add_instance(
+                    i, capacity_tokens=ec.device_capacity_tokens,
+                    host_capacity_tokens=ec.host_capacity_tokens,
+                    cost_model=(base_cm.with_chips(c) if c > 1
+                                else base_cm))
         self._rr_next = 0
         self.finished: List[Request] = []
         # terminal failures (retry budget exhausted / zero survivors)
@@ -580,22 +621,42 @@ class ClusterRuntime:
             self._reroute(r, now)
         return moved
 
+    @property
+    def _platform(self) -> str:
+        return torch.device(self.device).type
+
     def add_instance(self, model_cfg, params, now: float,
                      engine_cfg: Optional[EngineConfig] = None) -> int:
-        """Elastic scale-up: register and start a fresh instance on the
-        runtime's device."""
+        """Elastic scale-up: register and start a fresh instance. A
+        multi-chip ``engine_cfg`` carves its submesh from the devices no
+        instance owns yet (the mesh-of-meshes stays disjoint) and
+        registers at aggregate capacity with a chips-derived cost model;
+        a 1-chip one runs on the runtime's device."""
         inst = max(self.engines) + 1
         ec = dataclasses.replace(engine_cfg or EngineConfig(),
                                  instance_id=inst)
+        chips = max(ec.chips_per_instance, 1)
+        devices = None
+        if chips > 1:
+            ofs = self._device_ofs
+            pool = self._devices
+            if pool is None and self._platform != "cpu":
+                pool = visible_devices(self._platform)
+            devices = partition_devices(
+                [chips], pool[ofs:] if pool is not None else None,
+                platform=self._platform)[0]
+            self._device_ofs = ofs + chips
         self.engines[inst] = Engine(model_cfg, params, ec,
                                     on_evict=self._notify_evictions,
-                                    device=self.device)
+                                    device=self.device, devices=devices)
         if self.faults is not None:
             self.engines[inst].attach_faults(self.faults)
         self.gs.add_instance(inst,
                              capacity_tokens=ec.device_capacity_tokens,
                              host_capacity_tokens=ec.host_capacity_tokens,
-                             now=now)
+                             now=now,
+                             cost_model=(self.gs.cost_model.with_chips(chips)
+                                         if chips > 1 else None))
         if self.telemetry is not None:
             self.engines[inst].attach_telemetry(self.telemetry)
             self._gs_gauges(inst)

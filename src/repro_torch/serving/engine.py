@@ -51,15 +51,32 @@ read the pages. Host data crosses in pinned buffers with
 ``non_blocking=True``; the host blocks only where the reference reads
 bytes (a demote's drain, a step's predictions).
 
-Not ported yet (construction raises ``NotImplementedError``):
-tensor-parallel instances.
+Tensor-parallel instances (``chips_per_instance > 1``, the paged fused
+plane only): the engine drives one serve submesh (``launch/mesh.py``),
+single-controller like the reference's. Its parameters are sharded by
+``serve_policy`` and its pool by ``pool_pspec`` (``launch/sharding.py``:
+one tree per shard, each on its shard's device); the radix tree, page
+tables and scheduling stay on the host, once. Each step still makes ONE
+model dispatch, which loops over the shards inside. Capacity is
+``capacity_tokens`` per chip: the pool holds ``capacity_tokens * chips``
+tokens, each shard a 1/chips slice of every page. Page copies, demote
+gathers and restore scatters run on every shard, each shard moving its
+own slice over its own copy; a TP engine runs them on each device's
+compute stream. ``shard_dma_seconds`` accumulates the host wall of the
+per-shard copies (the step's batch lowering, restore and prefetch
+scatters, the demote landing), ``collective_seconds`` the wall blocked
+on the sharded dispatch's result; both stay 0.0 on a single-chip
+engine. With ``device="cpu"`` the shards are emulated on the CPU; on
+CUDA the first visible cards are taken, and too few raise unless an
+explicit ``devices`` list (which may repeat a card) is passed.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,6 +86,8 @@ from ..bridge import tree_to
 from ..core.local_scheduler import Batch, LocalScheduler, LocalSchedulerConfig
 from ..core.radix_tree import PathKey, PrefixSpan
 from ..core.request import Request
+from ..launch import sharding as shard_lib
+from ..launch.mesh import make_serve_mesh
 from ..models import zoo
 from .batch import ForwardBatch, ModelWorkerBatch, bucket, lower_arrays
 from .faults import CircuitBreaker, InstanceCrashed
@@ -112,7 +131,10 @@ class EngineConfig:
     # requests' host chains are scattered into node pages ahead of their
     # admission, so admission aliases them and restores nothing
     prefetch_budget_tokens: int = 0
-    # tensor-parallel degree: not ported yet, must stay 1
+    # >1 makes the engine a tensor-parallel submesh (paged plane only):
+    # params sharded by serve_policy, the pool by pool_pspec.
+    # ``capacity_tokens`` stays PER CHIP: the pooled device KV capacity
+    # is capacity_tokens * chips
     chips_per_instance: int = 1
     # draft-model speculative decoding (requires the fused plane). None
     # disables it; a SpeculativeConfig turns every decode slot with >= 2
@@ -126,8 +148,8 @@ class EngineConfig:
 
 
 def _check_planes(econf: EngineConfig, paged: bool) -> None:
-    """The reference's plane checks (ValueError), then the planes the
-    port lacks (NotImplementedError); ``paged``: the plane chosen."""
+    """The reference's plane checks (ValueError); ``paged``: the plane
+    chosen."""
     fused = paged and (econf.fused is None or econf.fused)
     if econf.fused and not paged:
         raise ValueError("fused ragged iterations require the paged data "
@@ -141,11 +163,9 @@ def _check_planes(econf: EngineConfig, paged: bool) -> None:
     if econf.speculative is not None and not fused:
         raise ValueError("speculative decoding rides the fused mixed "
                          "dispatch: it requires the paged fused plane")
-    if econf.chips_per_instance > 1:
-        if not paged:
-            raise ValueError("tensor-parallel serving (chips_per_instance "
-                             "> 1) requires the paged data plane")
-        raise NotImplementedError("not ported yet: chips_per_instance>1")
+    if econf.chips_per_instance > 1 and not paged:
+        raise ValueError("tensor-parallel serving (chips_per_instance "
+                         "> 1) requires the paged data plane")
 
 
 def _cache_zeros(specs: Pytree, device) -> Pytree:
@@ -179,7 +199,13 @@ def _write_slab(dst: torch.Tensor, slab: torch.Tensor, off: int) -> None:
 class Engine:
     def __init__(self, cfg, params, econf: EngineConfig,
                  on_evict: Optional[Callable] = None,
-                 device="cuda"):
+                 device="cuda", devices: Optional[Sequence] = None):
+        """``device``: where the engine runs ("cuda" unless the caller
+        asks for "cpu"). ``devices``: the submesh's devices of a
+        tensor-parallel engine (the cluster hands each instance its
+        group; a list may repeat a device); by default the first
+        ``chips_per_instance`` visible cards, or CPU shards when
+        ``device`` is the CPU."""
         # the engine serves full attention; SWA only changes semantics
         # beyond max_context
         self.model_cfg = dataclasses.replace(cfg, sliding_window=0)
@@ -190,17 +216,34 @@ class Engine:
             raise ValueError(f"{cfg.name} is not paged-servable "
                              "(recurrent/cross/encdec positions)")
         _check_planes(econf, self.paged)
-        self.device = torch.device(device)
+        self.device = torch.device(devices[0] if devices else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine: CUDA is not available; pass "
                                "device='cpu' to run on the CPU")
-        # host<->device copies beside the compute stream (module doc)
+        # the serve submesh: None on a single-chip engine, which takes
+        # the unsharded path throughout
+        self.chips = max(econf.chips_per_instance, 1)
+        self.mesh = None
+        self.plan: Optional[shard_lib.ShardPlan] = None
+        if self.chips > 1:
+            self.mesh = make_serve_mesh(self.chips, devices,
+                                        platform=self.device.type)
+            self.device = self.mesh.devices[0]
+        # host<->device copies beside the compute stream (module doc); a
+        # tensor-parallel engine copies on each device's compute stream
         self.copy_stream = (torch.cuda.Stream(self.device)
-                            if self.device.type == "cuda" else None)
+                            if self.device.type == "cuda"
+                            and self.mesh is None else None)
         # host<->device copy timing: None until attach_copy_log()
         self.copy_log: Optional[CopyLog] = None
         full_precision_matmuls()
-        self.params = tree_to(params, self.device)
+        if self.mesh is None:
+            self.params = tree_to(params, self.device)
+        else:
+            # one tree per shard; the whole tensors are not kept
+            self.params = shard_lib.shard_params(
+                params, self.api.specs, self.mesh,
+                shard_lib.serve_policy(self.mesh, self.api.n_bytes))
         self.econf = econf
         self.fused = self.paged and (econf.fused is None or econf.fused)
         self.scheduler = LocalScheduler(
@@ -244,7 +287,9 @@ class Engine:
              "prefetch_batches_overlapped": 0,
              "spec_proposed_tokens": 0, "spec_accepted_tokens": 0,
              "spec_rejected_tokens": 0, "spec_verify_lanes": 0,
-             "spec_draft_dispatches": 0, "spec_degraded": 0},
+             "spec_draft_dispatches": 0, "spec_degraded": 0,
+             # tensor-parallel engines only (module doc)
+             "shard_dma_seconds": 0.0, "collective_seconds": 0.0},
             derived={"demote_overlap_frac":
                      frac_of("demote_batches_overlapped",
                              "demote_batches"),
@@ -294,14 +339,19 @@ class Engine:
             self.copy_stream.synchronize()
         self.pages = None            # drop the old pool before allocating
         self.draft = None
-        self.pages = self.api.paged_cache_specs(n_pages, ps, self.device)
-        leaves = tree_leaves(self.pages)
-        self.leaf_paths = [p for p, _ in leaves]
-        self._leaves = [a for _, a in leaves]
+        if self.mesh is not None:
+            self.plan = self.api.shard_plan(self.mesh, n_pages, ps)
+        self.pages = self.api.paged_cache_specs(n_pages, ps, self.device,
+                                                self.plan)
+        shards = self.pages if self.plan is not None else [self.pages]
+        self._shard_leaves = [[a for _, a in tree_leaves(p)]
+                              for p in shards]
+        self.leaf_paths = [p for p, _ in tree_leaves(shards[0])]
+        self._leaves = self._shard_leaves[0]
         # the draft model's own paged plane, rebuilt with the pool
         if self.econf.speculative is not None:
             self.draft = DraftWorker(self.econf.speculative, self.econf,
-                                     self.device)
+                                     self.device, mesh=self.mesh)
         # keep node->page aliases aligned with radix node splits
         self.scheduler.tree.split_hooks.append(self._on_split)
         # the host tier: the scheduler owns demote/drop policy,
@@ -330,28 +380,122 @@ class Engine:
         self._cache_spec = self.api.cache_specs(1, self.econf.max_context)
 
     def _copy_page(self, src: int, dst: int) -> None:
-        """Copy one page of every pool leaf (the CoW device copy)."""
-        for a in self._leaves:
-            a[dst].copy_(a[src])
+        """Copy one page of every pool leaf (the CoW device copy): on
+        every shard its slice of the page; a page-wise pool copies from
+        the page's owner to the copy's owner."""
+        if self.plan is not None and self.plan.pool == "page":
+            n = self.plan.pages_per_shard
+            for a, b in zip(self._shard_leaves[src // n],
+                            self._shard_leaves[dst // n]):
+                b[dst % n].copy_(a[src % n])
+            return
+        for leaves in self._shard_leaves:
+            for a in leaves:
+                a[dst].copy_(a[src])
+
+    # ---- tensor-parallel instances: host/device boundary -------------------
+
+    def _lower(self, arrays):
+        """int32 host arrays -> tensors on shard 0's device in one copy;
+        on a submesh timed into ``shard_dma_seconds`` (each shard reads
+        the batch there or gets its copy inside the dispatch)."""
+        if self.mesh is None:
+            return lower_arrays(arrays, self.device)
+        t0 = time.perf_counter()
+        out = lower_arrays(arrays, self.device)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self.stats["shard_dma_seconds"] += time.perf_counter() - t0
+        return out
+
+    def _fetch(self, *ts: torch.Tensor) -> np.ndarray:
+        """The dispatch's predictions on the host, in one copy (it waits
+        for the device); on a submesh timed into ``collective_seconds``
+        (blocked on the sharded dispatch and its cross-shard result)."""
+        t0 = time.perf_counter()
+        out = (torch.cat([t.reshape(-1) for t in ts]) if len(ts) > 1
+               else ts[0]).cpu().numpy()
+        if self.mesh is not None:
+            self.stats["collective_seconds"] += time.perf_counter() - t0
+        return out
+
+    def _route(self, s: int, pidx: np.ndarray, sidx: np.ndarray):
+        """Shard s's share of tokens at (page pidx, slot sidx): (host
+        selection, local pages, local slots). Head-wise and replicated
+        pools take every token (the head-wise one only its kv heads of
+        each), slot-wise the slots it owns, page-wise the pages."""
+        plan = self.plan
+        if plan.pool == "slot":
+            sel = sidx // plan.slot_size == s
+            return sel, pidx[sel], sidx[sel] % plan.slot_size
+        if plan.pool == "page":
+            n = plan.pages_per_shard
+            sel = pidx // n == s
+            return sel, pidx[sel] % n, sidx[sel]
+        return np.ones(len(pidx), bool), pidx, sidx
+
+    def _kv_heads(self, s: int) -> slice:
+        """Shard s's kv heads of a host span [..., KH, D], as
+        ``span_pspec`` splits it."""
+        cfg = self.api.cfg
+        if "model" not in shard_lib.span_pspec(
+                (1, cfg.n_kv_heads, cfg.head_dim), self.mesh):
+            return slice(None)
+        n = cfg.n_kv_heads // self.plan.tp
+        return slice(s * n, (s + 1) * n)
+
+    @property
+    def shard_axis(self) -> int:
+        """The axis of a gathered demote [n_leaves, n, PS, KH, D] that the
+        shards' pieces concatenate along (head- or slot-wise pools)."""
+        return {"head": 3, "slot": 2}.get(self.plan.pool, 0)
 
     # ---- host tier: device-side gathers and scatters ---------------------
 
-    def gather_pages_device(self, page_ids: List[int]) -> torch.Tensor:
+    def gather_pages_device(self, page_ids: List[int]):
         """Demote-side snapshot: ONE gather over an entire eviction
         plan's pages, of every pool leaf, into a FRESH device tensor
         [n_leaves, n, PS, KH, D] on the compute stream. The host tier
         copies it to the host at once, on the copy stream. Unlike the
         reference, which pads to a power-of-two bucket so jit sees few
         shapes, the gather holds exactly the plan's pages: eager PyTorch
-        compiles nothing, and padding would only cross the host link."""
-        idx = lower_arrays((np.asarray(page_ids, np.int32),),
-                           self.device)[0]
-        a0 = self._leaves[0]
-        out = torch.empty((len(self._leaves), len(page_ids)) + a0.shape[1:],
-                          dtype=a0.dtype, device=self.device)
-        for i, a in enumerate(self._leaves):
-            torch.index_select(a, 0, idx, out=out[i])
+        compiles nothing, and padding would only cross the host link.
+
+        A tensor-parallel engine returns a list: each shard's own slice
+        of the pages (head- or slot-wise pools; the host tier copies each
+        and joins them along ``shard_axis``), or one tensor on shard 0's
+        device gathered from the pages' owners (page-wise) or from shard
+        0 (replicated)."""
         self.stats["demote_dispatches"] += 1
+        ids = np.asarray(page_ids, np.int32)
+        if self.plan is None:
+            return self._gather(self._leaves, ids, self.device)
+        if self.plan.pool in ("head", "slot"):
+            return [self._gather(leaves, ids, d) for leaves, d in
+                    zip(self._shard_leaves, self.mesh.devices)]
+        if self.plan.pool == "rep":
+            return [self._gather(self._leaves, ids, self.device)]
+        a0 = self._leaves[0]
+        out = torch.empty((len(self._leaves), len(ids))
+                          + a0.shape[1:], dtype=a0.dtype,
+                          device=self.device)
+        for s, leaves in enumerate(self._shard_leaves):
+            sel, local, _ = self._route(s, ids, np.zeros_like(ids))
+            if sel.any():
+                part = self._gather(leaves, local, self.mesh.devices[s])
+                out[:, torch.from_numpy(np.flatnonzero(sel)).to(
+                    self.device)] = part.to(self.device)
+        return [out]
+
+    def _gather(self, leaves, ids: np.ndarray, device) -> torch.Tensor:
+        """index_select of pages ``ids`` from every leaf into one fresh
+        tensor [n_leaves, n, ...] on ``device``."""
+        idx = lower_arrays((ids,), device)[0]
+        a0 = leaves[0]
+        out = torch.empty((len(leaves), len(ids)) + a0.shape[1:],
+                          dtype=a0.dtype, device=device)
+        for i, a in enumerate(leaves):
+            torch.index_select(a, 0, idx, out=out[i])
         return out
 
     def _drain_demotes(self) -> None:
@@ -676,12 +820,17 @@ class Engine:
         sidx = np.concatenate([s[1] for s in staged])
         a0 = self._leaves[0]
         cuda = self.device.type == "cuda"
+        # a tensor-parallel engine pins each shard's share instead
         host = torch.empty((len(self._leaves), len(pidx)) + a0.shape[2:],
-                           dtype=a0.dtype, pin_memory=cuda)
+                           dtype=a0.dtype,
+                           pin_memory=cuda and self.plan is None)
         hnp = host_numpy(host)
         cols = zip(*[[x for _, x in tree_leaves(s[2])] for s in staged])
         for i, col in enumerate(cols):
             np.concatenate(col, axis=0, out=hnp[i])
+        if self.plan is not None:
+            self._scatter_shards(host, pidx, sidx)
+            return None
         if not cuda:
             self._scatter_pages(host, torch.from_numpy(pidx).long(),
                                 torch.from_numpy(sidx).long())
@@ -705,10 +854,37 @@ class Engine:
             return ev
 
     def _scatter_pages(self, data: torch.Tensor, pi: torch.Tensor,
-                       si: torch.Tensor) -> None:
+                       si: torch.Tensor, leaves=None) -> None:
         """Write data[l, t] into leaf l at (page pi[t], slot si[t])."""
-        for a, d in zip(self._leaves, data):
+        for a, d in zip(self._leaves if leaves is None else leaves, data):
             a.index_put_((pi, si), d)
+
+    def _scatter_shards(self, host: torch.Tensor, pidx: np.ndarray,
+                        sidx: np.ndarray) -> None:
+        """A tensor-parallel engine's (page, slot) scatter of a host span
+        [n_leaves, n, KH, D]: each shard receives its own share
+        (``_route``: its kv heads, or the tokens of its slots or pages)
+        in one copy on its device's compute stream, and scatters it into
+        its leaves at their local coordinates. The copies' wall (the
+        host waits for them) goes to ``shard_dma_seconds``."""
+        t0 = time.perf_counter()
+        used = []
+        for s, dev in enumerate(self.mesh.devices):
+            sel, lp, ls = self._route(s, pidx, sidx)
+            if not len(lp):
+                continue
+            part = host[:, torch.from_numpy(sel)][..., self._kv_heads(s),
+                                                  :].contiguous()
+            if dev.type == "cuda":
+                part = part.pin_memory()
+                used.append(dev)
+            data = part.to(dev, non_blocking=True)
+            pi, si = lower_arrays((lp, ls), dev)
+            self._scatter_pages(data, pi.long(), si.long(),
+                                self._shard_leaves[s])
+        for dev in used:
+            torch.cuda.current_stream(dev).synchronize()
+        self.stats["shard_dma_seconds"] += time.perf_counter() - t0
 
     @staticmethod
     def _token_page_slots(table, page_size: int, lo: int, hi: int
@@ -1011,7 +1187,8 @@ class Engine:
                     {"tokens": toks[None],
                      "start": torch.tensor([start], dtype=torch.int32,
                                            device=dev),
-                     "page_table": torch.from_numpy(pt).to(dev)})
+                     "page_table": torch.from_numpy(pt).to(dev)},
+                    plan=self.plan)
             else:
                 # the cache is updated in place; an int start costs no
                 # device read for extend's bounds check
@@ -1113,9 +1290,8 @@ class Engine:
             [("req", it.request.request_id) for it in plain_dec],
             n_rows=Ld)
         # ONE host-to-device copy of the step's inputs, one dispatch
-        fb = ForwardBatch.lower(
-            ModelWorkerBatch(ctoks, cstart, clen, cpt, dtoks, dpos, dpt),
-            self.device)
+        fb = ForwardBatch(*self._lower(ModelWorkerBatch(
+            ctoks, cstart, clen, cpt, dtoks, dpos, dpt).arrays()))
         inputs = {"chunk_tokens": fb.chunk_tokens,
                   "chunk_start": fb.chunk_start,
                   "chunk_len": fb.chunk_len,
@@ -1124,15 +1300,15 @@ class Engine:
                   "dec_page_table": fb.dec_page_table}
         if spec_lanes:
             nxt, cpred, self.pages = self.api.mixed_paged_spec(
-                self.params, self.pages, inputs)
+                self.params, self.pages, inputs, plan=self.plan)
             # one device-to-host copy of both results (waits for the card)
-            both = torch.cat([nxt, cpred.reshape(-1)]).cpu().numpy()
+            both = self._fetch(nxt, cpred)
             nxt, cpred = both[:nxt.numel()], both[nxt.numel():].reshape(
                 cpred.shape)
         else:
             nxt, self.pages = self.api.mixed_paged(
-                self.params, self.pages, inputs)
-            nxt = nxt.cpu().numpy()         # waits for the device
+                self.params, self.pages, inputs, plan=self.plan)
+            nxt = self._fetch(nxt)          # waits for the device
         self.stats["model_dispatches"] += 1
         self.stats["fused_iterations"] += 1
         self.stats["fused_padded_tokens"] += (
@@ -1211,12 +1387,12 @@ class Engine:
                               np.zeros(0, np.int32), np.zeros(0, np.int32),
                               np.zeros((0, self._pages_per_req), np.int32),
                               tokens, pos, pt)
-        fb = ForwardBatch.lower(wb, self.device)
+        fb = ForwardBatch(*self._lower(wb.arrays()))
         nxt, self.pages = self.api.decode_paged(
             self.params, self.pages,
             {"tokens": fb.dec_tokens, "pos": fb.dec_pos,
-             "page_table": fb.dec_page_table})
-        nxt = nxt.cpu().numpy()
+             "page_table": fb.dec_page_table}, plan=self.plan)
+        nxt = self._fetch(nxt)
         for i, r in enumerate(dec):
             self.live[r.request_id]["next"] = int(nxt[i])
         self.stats["decode_steps"] += B
@@ -1288,6 +1464,17 @@ class Engine:
         telemetry.gauge_fn("sched_prefetch_reserved_tokens",
                            lambda s=sch: s.prefetch_reserved_tokens,
                            instance=inst)
+        # per-shard pool occupancy of a tensor-parallel engine: every
+        # shard holds a 1/chips slice of every live page, so its share in
+        # tokens is the pool's used pages x page_size / chips (read
+        # through the engine, so the gauge survives fail()'s rebuild)
+        if self.mesh is not None:
+            for s in range(self.chips):
+                telemetry.gauge_fn(
+                    "engine_shard_pool_tokens",
+                    lambda e=self: (e.pool.used_pages * e.pool.page_size
+                                    // e.chips),
+                    instance=inst, shard=s)
 
     def crash(self) -> None:
         """SILENT death: the data plane stops, the scheduler's queues stay

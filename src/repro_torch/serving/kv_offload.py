@@ -37,6 +37,13 @@ to another instance's ``HostKVStore``.
     stream order, every later write to them. On a CPU engine the same
     code copies synchronously, with no streams.
 
+    On a tensor-parallel engine the snapshot is one tensor per shard
+    (each shard's slice of the pages), each copied to the host on its own
+    device's compute stream; ``drain`` joins the slices along the
+    engine's ``shard_axis`` and adds the landing's wall to the engine's
+    ``shard_dma_seconds``. Restores go the other way per shard
+    (``Engine._scatter_shards``).
+
 ``CopyLog`` (attached on request: ``Engine.attach_copy_log``) times each
 batched copy with CUDA events on the stream that ran it (bytes and
 milliseconds per direction) and the host wall spent blocked in
@@ -351,12 +358,28 @@ class PagedHostTier:
                 "dispatches_at_issue": eng.stats["model_dispatches"]})
         return out
 
-    def _copy_to_host(self, gathered: torch.Tensor):
+    def _copy_to_host(self, gathered):
         """Issue the snapshot's device-to-host copy: on the copy stream,
         after the compute stream's work so far, into pinned memory.
         Returns (host tensor, the copy's completion event); a CPU
-        engine's snapshot already lies on the host (event None)."""
+        engine's snapshot already lies on the host (event None). A
+        tensor-parallel engine's snapshot is a list of per-shard tensors:
+        each is copied on its device's compute stream, and the result is
+        (host tensors, events)."""
         eng = self.engine
+        if isinstance(gathered, list):
+            hosts, events = [], []
+            for g in gathered:
+                if g.device.type != "cuda":
+                    hosts.append(g)
+                    continue
+                host = torch.empty(g.shape, dtype=g.dtype, pin_memory=True)
+                host.copy_(g, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(g.device))
+                hosts.append(host)
+                events.append(ev)
+            return hosts, events
         cs = eng.copy_stream
         if cs is None:
             return gathered, None
@@ -395,13 +418,22 @@ class PagedHostTier:
         ps = eng.pool.page_size
         paths = eng.leaf_paths
         for rec in pending:
-            if rec["event"] is not None:
+            if isinstance(rec["host"], list):
+                # a tensor-parallel engine's shards: land and join them
                 t0 = time.perf_counter()
-                rec["event"].synchronize()
-                if eng.copy_log is not None:
-                    eng.copy_log.totals["drain_blocked_s"] += (
-                        time.perf_counter() - t0)
-            arr = host_numpy(rec["host"])      # [n_leaves, n, PS, KH, D]
+                for ev in rec["event"]:
+                    ev.synchronize()
+                arr = np.concatenate([host_numpy(h) for h in rec["host"]],
+                                     axis=eng.shard_axis)
+                eng.stats["shard_dma_seconds"] += time.perf_counter() - t0
+            else:
+                if rec["event"] is not None:
+                    t0 = time.perf_counter()
+                    rec["event"].synchronize()
+                    if eng.copy_log is not None:
+                        eng.copy_log.totals["drain_blocked_s"] += (
+                            time.perf_counter() - t0)
+                arr = host_numpy(rec["host"])  # [n_leaves, n, PS, KH, D]
             demoted = 0
             for key, node_id, start, cov, ofs, npg in rec["jobs"]:
                 if key in rec["cancelled"]:

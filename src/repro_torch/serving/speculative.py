@@ -20,6 +20,11 @@ non-speculative decode slots. This module produces the guesses:
     propose as one jitted dispatch; here it runs eagerly, and still
     counts as one draft dispatch.
 
+On a tensor-parallel engine the draft's parameters and pool are sharded
+over the engine's submesh by the same policies as the target's
+(``serve_policy``, ``pool_pspec``), and its propose runs the same
+sharded forwards.
+
 Accept/trim protocol (greedy, token-exact vs the plain fused plane):
 with ``a`` leading draft tokens accepted by the target, the request
 commits d1..da plus the target's correction p_a, and the draft table
@@ -40,6 +45,7 @@ import torch
 
 from ..bridge import tree_to
 from ..configs.base import ModelConfig
+from ..launch import sharding as shard_lib
 from ..models import zoo
 from ..models.transformer import paged_servable
 from .batch import bucket, lower_arrays
@@ -79,7 +85,8 @@ class DraftWorker:
     the step (propose returns no drafts for it) instead of evicting —
     the draft tier has no host tier and no cached nodes to reclaim."""
 
-    def __init__(self, spec: SpeculativeConfig, econf, device="cuda"):
+    def __init__(self, spec: SpeculativeConfig, econf, device="cuda",
+                 mesh=None):
         self.spec = spec
         self.k = max(int(spec.k), 1)
         # same normalization the engine applies to the target config
@@ -95,6 +102,11 @@ class DraftWorker:
             if spec.draft_params is not None
             else self.api.init(torch.Generator(device=self.device)
                                .manual_seed(spec.draft_seed), self.device))
+        self.plan = None
+        if mesh is not None:
+            self.params = shard_lib.shard_params(
+                self.params, self.api.specs, mesh,
+                shard_lib.serve_policy(mesh, self.api.n_bytes))
         ps = econf.page_size
         # mirror the target pool's sizing: the draft working set is
         # bounded by the same live sequences; the degrade path absorbs
@@ -105,7 +117,10 @@ class DraftWorker:
         self._scratch_page = self.pool.reserve_page()   # page 0, pinned
         assert self._scratch_page == 0
         self._pages_per_req = -(-econf.max_context // ps)
-        self.pages = self.api.paged_cache_specs(n_pages, ps, self.device)
+        if mesh is not None:
+            self.plan = self.api.shard_plan(mesh, n_pages, ps)
+        self.pages = self.api.paged_cache_specs(n_pages, ps, self.device,
+                                                self.plan)
         self.dispatches = 0      # propose calls (the reference's jits)
         self.decode_steps = 0    # decode_paged forwards inside them
         self.degraded = 0
@@ -133,7 +148,8 @@ class DraftWorker:
              "chunk_len": clen, "chunk_page_table": cpt,
              "dec_tokens": zero_t, "dec_pos": zero_t,
              "dec_page_table": torch.zeros((1, cpt.shape[1]),
-                                           dtype=torch.int32, device=dev)})
+                                           dtype=torch.int32, device=dev)},
+            plan=self.plan)
         zero = torch.zeros_like(kvec)
         cur = nxt[:Lc]
         base = cstart + clen           # position d1 occupies when fed
@@ -148,7 +164,8 @@ class DraftWorker:
             pt = torch.where(live[:, None], cpt, torch.zeros_like(cpt))
             cur, self.pages = self.api.decode_paged(
                 self.params, self.pages,
-                {"tokens": toks, "pos": pos, "page_table": pt})
+                {"tokens": toks, "pos": pos, "page_table": pt},
+                plan=self.plan)
             self.decode_steps += 1
             drafts.append(torch.where(live, cur, zero))
         return torch.stack(drafts, dim=1)

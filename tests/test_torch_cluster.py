@@ -183,9 +183,29 @@ def test_cluster_elastic_add_instance(small_model):
     assert all(r.state.value == "finished" for r in reqs)
     assert cl.gs.instances[2].alive and not cl.gs.instances[0].alive
     cl.check_invariants()
-    with pytest.raises(NotImplementedError):
-        TCluster(tcfg, tparams, num_instances=1, chips_per_instance=[2],
-                 device="cpu")
+    # elastic add of a 2-chip instance, checked as the JAX package's
+    # add_instance registers one: aggregate capacity, a chips-derived
+    # cost model, its own submesh
+    ec2 = TEngineConfig(max_context=64, chunk_size=16, max_batch_tokens=64,
+                        capacity_tokens=4096, page_size=16,
+                        chips_per_instance=2)
+    assert cl.add_instance(tcfg, tparams, 0.3, engine_cfg=ec2) == 3
+    st = cl.gs.instances[3]
+    assert st.capacity_tokens == 2 * 4096
+    assert st.cost_model.prefill_a * 2 == pytest.approx(
+        cl.gs.cost_model.prefill_a)
+    assert cl.engines[3].mesh.size == 2 and cl.engines[2].mesh is None
+    cl.fail_instance(2, 0.3)
+    r = TRequest(tokens=_prompts(n=1, seed=6)[0], max_new_tokens=4)
+    assert cl.submit(r, 0.3) == 3
+    t = 0.3
+    for _ in range(400):
+        cl.step(t)
+        t += 0.01
+        if r.state.value == "finished":
+            break
+    assert r.state.value == "finished" and len(r.output_tokens) == 4
+    cl.check_invariants()
 
 
 def test_cluster_telemetry_binds_engine_series(small_model):

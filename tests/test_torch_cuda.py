@@ -852,3 +852,103 @@ def test_dense_engine_card_matches_cpu(card, arch):
     assert outs["cuda"] == outs["cpu"]
     assert stats["cuda"] == stats["cpu"]
     assert stats["cuda"]["reused_tokens"] > 0
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel instances: slot-shard partials, their merge, TP engines
+# ---------------------------------------------------------------------------
+
+# (B, H, KH, slot shard's page, P, n_pages, D): full-width smollm-360m's
+# slot shards at TP 2 and 4 (page 16 split in 8 or 4 slots), the reduced
+# config's (H 2, KH 1, D 16), and a wide table
+SLOT_CASES = [(8, 15, 5, 8, 64, 300, 64), (8, 15, 5, 4, 64, 300, 64),
+              (4, 2, 1, 8, 6, 40, 16), (2, 32, 8, 8, 128, 300, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SLOT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_partials_and_merge_match_plain(card, case, dtype):
+    """The partials entry (split kernel, merge skipped) against its plain
+    version on the kernel's own split plan, lanes of len 0 (an empty slot
+    shard: m -inf, l 0) included; the merge wrapper against the torch
+    lse_merge on the same partials, and both against the plain paged
+    attention."""
+    B, H, KH, page, P, n_pages, D = case
+    q, kp, vp, pt, lens = _cuda_inputs(*case, seed=21, dtype=dtype)
+    lens[0] = 0
+    n_splits, pps = PA.plan_for(q, kp, pt)
+    n0 = PA.paged_decode_partials.launches
+    acc, m, l = PA.paged_decode_partials(q, kp, vp, pt, lens)
+    assert PA.paged_decode_partials.launches == n0 + 1
+    pacc, pm, pl = PA.paged_decode_partials_plain(q, kp, vp, pt, lens,
+                                                  n_splits, pps)
+    assert acc.shape == pacc.shape == (B, KH, n_splits, H // KH, D)
+    assert torch.isinf(m[0]).all() and (l[0] == 0).all()
+    torch.testing.assert_close(m, pm, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(l, pl, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(acc, pacc, atol=1e-4, rtol=1e-4)
+    n1 = PA.lse_merge_partials.launches
+    out = PA.lse_merge_partials(acc, m, l, dtype)
+    assert PA.lse_merge_partials.launches == n1 + 1
+    _assert_close(out, PA.lse_merge_partials_plain(acc, m, l, dtype), dtype)
+    _assert_close(out, PA.paged_decode_attention_plain(q, kp, vp, pt, lens),
+                  dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,heads,kv_heads,tp", [
+    ("smollm-360m", 2, 1, 2), ("smollm-360m", 2, 1, 4),
+    ("smollm-360m", 2, 2, 2), ("mistral-7b", 2, 1, 2)])
+def test_tp_engine_card_matches_cpu(card, arch, heads, kv_heads, tp):
+    """A tensor-parallel engine with its shards on one card against the
+    same engine with its shards on the CPU, float32 reduced configs:
+    token-identical, the same stats; on the card the slot shards run the
+    partials entry and one merge per layer and dispatch, head shards the
+    paged kernel once per shard, layer and dispatch."""
+    import dataclasses
+    from repro_torch import bridge
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.core.request import Request
+    from repro_torch.serving.engine import Engine, EngineConfig
+    cfg = dataclasses.replace(reduced(ARCHS[arch]), n_layers=2,
+                              dtype="float32", n_heads=heads,
+                              n_kv_heads=kv_heads)
+    params = bridge.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    outs, stats = {}, {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(cfg, params, EngineConfig(
+            max_context=64, chunk_size=16, max_batch_tokens=64,
+            capacity_tokens=4096 // tp, page_size=16,
+            chips_per_instance=tp), device=dev,
+            devices=[dev] * tp if dev == "cuda" else None)
+        reqs = [Request(tokens=p, max_new_tokens=4)
+                for p in _dense_stream(cfg.vocab_size)]
+        n0 = (PA.paged_decode_attention.launches,
+              PA.paged_decode_partials.launches,
+              PA.lse_merge_partials.launches)
+        now, done = 0.0, []
+        for wave in (reqs[:2], reqs[2:]):
+            for r in wave:
+                eng.scheduler.enqueue(r, now)
+            target = len(done) + len(wave)
+            while len(done) < target:
+                done += eng.step(now)
+                now += 0.01
+        got = (PA.paged_decode_attention.launches - n0[0],
+               PA.paged_decode_partials.launches - n0[1],
+               PA.lse_merge_partials.launches - n0[2])
+        n = cfg.n_layers * eng.stats["model_dispatches"]
+        if dev == "cpu":
+            assert got == (0, 0, 0)
+        elif eng.plan.pool == "head":
+            assert got == (n * tp, 0, 0)
+        else:
+            assert eng.plan.pool == "slot" and got == (0, n * tp, n)
+        eng.pool.check_invariants()
+        outs[dev] = [list(r.output_tokens) for r in reqs]
+        stats[dev] = {k: v for k, v in eng.stats.items()
+                      if not k.endswith("_seconds")}
+    assert outs["cuda"] == outs["cpu"]
+    assert stats["cuda"] == stats["cpu"]
+    assert stats["cuda"]["reused_tokens"] > 0

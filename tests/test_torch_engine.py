@@ -173,9 +173,17 @@ def test_engine_defaults_to_the_card(small_model):
 
 @pytest.mark.parametrize("field,value", [("chips_per_instance", 2)])
 def test_unported_planes_raise(small_model, field, value):
+    """Once refused, a tensor-parallel engine now builds on the CPU (its
+    shards emulated there); without device= it runs on the card, and
+    raises on a machine with too few cards, never emulating silently."""
     _, _, tcfg, tparams = small_model
-    with pytest.raises(NotImplementedError):
-        TEngine(tcfg, tparams, TEngineConfig(**{field: value}), device="cpu")
+    eng = TEngine(tcfg, tparams, TEngineConfig(**{field: value}),
+                  device="cpu")
+    assert eng.mesh is not None and eng.mesh.size == value
+    assert len(eng.params) == len(eng.pages) == value
+    if torch.cuda.device_count() < value:
+        with pytest.raises((RuntimeError, ValueError)):
+            TEngine(tcfg, tparams, TEngineConfig(**{field: value}))
 
 
 @pytest.mark.parametrize("plane", ["host_tier", "prefetch", "speculative",
