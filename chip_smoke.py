@@ -56,11 +56,24 @@ From the root of a checkout. It
    the two planes agree; then holds each of the two kernels against its
    plain version on every input (shapes, lens, page tables) its plane
    gave it, times the last of each lane count, and frees the weights;
-8. checks the served outputs against the same engine on the CPU on
+8. serves the MoE models at full width (d 6144, 48/8 heads, D 128, 8
+   experts, top 2, bf16, random weights from the seed), cut in depth to
+   what the card holds: mixtral-8x22b (d_ff 16384, 12 of 56 layers,
+   56.7 GiB) on the automatic plane (paged fused) and with paged=False,
+   grok-1-314b (d_ff 32768, vocab 131072, 6 of 64 layers, 58.0 GiB) on
+   the paged plane, the mistral phase's stream; the same checks as step 7
+   (the G 6 instantiations of the paged and split-K kernels), plus the
+   routed MoE's calls, experts hit and host syncs a step; then mixtral
+   cut to 2 layers at TP 1, 2 and 4 (the expert-parallel arm: 8 / 4 / 2
+   experts a shard), the first dispatch's float32 logits against TP 1's;
+9. checks the served outputs against the same engine on the CPU on
    small float32 configs (token-identical): smollm-360m on the paged and
    the dense plane, mistral-7b on the dense plane, and raw mistral-7b's
    prefill and decode steps past its window (the ring cache wraps);
-9. tensor-parallel instances, each submesh's shards on the one card:
+   reduced grok-1-314b and mixtral-8x22b on the dense plane and on the
+   paged plane at TP 1, 2 and 4; the half-expert MoE at TP 4 and 8 on
+   the card against moe_full on the CPU;
+10. tensor-parallel instances, each submesh's shards on the one card:
    full-width mistral-7b (the weights of step 7) on the paged fused
    plane at TP 1, 2 and 4 (head-wise pools) with one dispatch per step,
    paged-kernel launches = 32 x shards x dispatches, per-shard pool and
@@ -73,7 +86,7 @@ From the root of a checkout. It
    mistral-7b token-identical at TP 1, 2 and 4 and on the card == on
    the CPU; and a heterogeneous [2, 1] cluster with host tiers that
    executes an E2 migration and a drain migration, card == CPU;
-10. profiles a second, smaller full-width serve with torch.profiler:
+11. profiles a second, smaller full-width serve with torch.profiler:
    device busy share, launches per step, the costliest kernels, and the
    paged decode kernel's launches and share of device time.
 
@@ -225,6 +238,15 @@ def time_ms(torch, fn, flush, n=30):
     return total / n
 
 
+def instantiation(name):
+    """(dtype, G, D) of a mangled <T, G, D> kernel name, else its tail."""
+    import re
+    m = re.search(r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
+    if not m:
+        return name[-24:]
+    return f"{'f32' if m[1] == 'f' else 'bf16'} G{m[2]} D{m[3]}"
+
+
 def ptxas_lines(lib, kernel):
     """Print what ``-Xptxas -v`` reported for the instantiations of
     ``kernel`` in library ``lib``: their register range, and every one
@@ -242,7 +264,8 @@ def ptxas_lines(lib, kernel):
             regs.append(int(line.split("Used")[1].split()[0]))
         elif name and kernel in name and "spill stores" in line \
                 and not line.split("bytes stack frame, ")[1].startswith("0 "):
-            spills.append(f"{name[-24:]}: {line.split(', ', 1)[1].strip()}")
+            spills.append(f"{instantiation(name)}: "
+                          f"{line.split(', ', 1)[1].strip()}")
     which = f": {'; '.join(spills)}" if spills else ""
     print(f"ptxas: {lib}: {kernel}: {len(regs)} instantiations, "
           f"{min(regs, default=0)}-{max(regs, default=0)} registers/thread, "
@@ -1979,6 +2002,279 @@ def hetero_cluster_phase(torch, configs, bridge, ClusterRuntime,
           f"executed, drain moved {moved} tokens; {json.dumps(stats['cuda'])}")
 
 
+# ---------------------------------------------------------------------------
+# MoE models at full width
+# ---------------------------------------------------------------------------
+
+# full widths of the MoE configs (their configs/*.py), cut in depth to
+# what one H100 holds beside the pool and activations: bf16 weights
+# 56.72 GiB at 12 of mixtral-8x22b's 56 layers, 57.99 GiB at 6 of
+# grok-1-314b's 64 (param_bytes)
+MOE_DEPTH = {"mixtral-8x22b": 12, "grok-1-314b": 6}
+MOE_WIDTHS = {
+    "mixtral-8x22b": dict(d_model=6144, n_heads=48, n_kv_heads=8,
+                          head_dim=128, d_ff=16384, n_experts=8,
+                          experts_per_token=2, vocab_size=32768,
+                          sliding_window=4096, dtype="bfloat16"),
+    "grok-1-314b": dict(d_model=6144, n_heads=48, n_kv_heads=8,
+                        head_dim=128, d_ff=32768, n_experts=8,
+                        experts_per_token=2, vocab_size=131072,
+                        dtype="bfloat16")}
+# the planes each model is served on at full width
+MOE_PLANES = {"mixtral-8x22b": (("auto", None), ("dense", False)),
+              "grok-1-314b": (("auto", None),)}
+
+
+def moe_serve(torch, DA, PA, L, cfg, params, paged, Engine, EngineConfig,
+              Request, gen_workload, served, dev="cuda"):
+    """The mistral phase's stream served once by one engine on ``paged``'s
+    plane with every count at 0: every request finished with prefix
+    reuse, and the plane's decode kernel (and only it) launched once per
+    layer per dispatch (paged) or decode batch (dense). Returns (numbers,
+    outputs); the numbers include the routed MoE's calls, expert products
+    and host syncs (``layers.MOE_STATS``)."""
+    eng = Engine(cfg, params, EngineConfig(**MISTRAL_ECONF, paged=paged),
+                 device=dev)
+    reqs = mistral_requests(Request, gen_workload, cfg.vocab_size)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    DA.decode_attention.launches = PA.paged_decode_attention.launches = 0
+    for k in L.MOE_STATS:
+        L.MOE_STATS[k] = 0
+    with tap_decode_kernels(torch, cfg.n_layers, served):
+        t0 = time.perf_counter()
+        steps = serve_waves(eng, reqs)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    split_k = DA.decode_attention.launches
+    paged_l = PA.paged_decode_attention.launches
+    moe = dict(L.MOE_STATS)
+    name = f"{cfg.name} {'paged' if eng.paged else 'dense'}"
+    check_outputs(name, reqs, cfg.vocab_size)
+    st = eng.stats
+    check(st["reused_tokens"] > 0, f"{name}: no prefix reuse")
+    check(eng.paged == (paged is None), f"{name}: wrong data plane")
+    if eng.paged:
+        check(split_k == 0 and paged_l > 0
+              and paged_l == cfg.n_layers * st["model_dispatches"],
+              f"{name}: paged launches {paged_l} (split-K {split_k}) != "
+              f"{cfg.n_layers} x {st['model_dispatches']} dispatches")
+    else:
+        check(paged_l == 0 and split_k > 0
+              and split_k == cfg.n_layers * st["decode_batches"],
+              f"{name}: split-K launches {split_k} (paged {paged_l}) != "
+              f"{cfg.n_layers} x {st['decode_batches']} decode batches")
+    check(moe["calls"] > 0 and moe["host_syncs"] == moe["calls"],
+          f"{name}: routed MoE calls {moe}")
+    reused, prefilled = st["reused_tokens"], st["prefilled_tokens"]
+    out = dict(
+        paged=eng.paged, steps=steps,
+        model_dispatches=st["model_dispatches"],
+        decode_batches=st["decode_batches"], reused_tokens=reused,
+        prefilled_tokens=prefilled, reuse_share=reused / (reused + prefilled),
+        wall_s=wall, steps_per_s=steps / wall,
+        paged_decode_launches=paged_l, split_k_decode_launches=split_k,
+        moe_routed_calls=moe["calls"],
+        moe_routed_calls_per_layer_per_step=moe["calls"] / (
+            cfg.n_layers * steps),
+        experts_hit_per_routed_call=moe["expert_products"] / moe["calls"],
+        moe_host_syncs=moe["host_syncs"],
+        moe_host_syncs_per_step=moe["host_syncs"] / steps)
+    if dev == "cuda":
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    outputs = [list(r.output_tokens) for r in reqs]
+    del eng
+    return out, outputs
+
+
+def first_layers(tree, n):
+    """A copy of the first n layers of every stacked leaf."""
+    if isinstance(tree, dict):
+        return {k: first_layers(v, n) for k, v in tree.items()}
+    return tree[:n].clone()
+
+
+def cast_tree(torch, tree, dtype):
+    if isinstance(tree, dict):
+        return {k: cast_tree(torch, v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def moe_tp_cut(torch, PA, cfg, cut, Engine, EngineConfig, Request,
+               gen_workload, dev="cuda"):
+    """mixtral-8x22b cut to TP_LOGIT_LAYERS layers (full width, the
+    phase's weights ``cut``) at TP 1, 2 and 4, every shard on the one
+    card, in float32 (gated) and bf16 (printed): the expert-parallel arm
+    (8 / 4 / 2 experts a shard, head-wise pools), paged launches = layers
+    x shards x dispatches, and the first dispatch's logits against TP
+    1's."""
+    import dataclasses
+    out = {tp: {} for tp in TP_DEGREES[1:]}
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, n_layers=TP_LOGIT_LAYERS, dtype=dtype)
+        p = cast_tree(torch, cut, getattr(torch, dtype))
+        logits = {}
+        for tp in TP_DEGREES:
+            ec = dict(MISTRAL_ECONF, chips_per_instance=tp,
+                      capacity_tokens=MISTRAL_ECONF["capacity_tokens"] // tp)
+            eng = Engine(c, p, EngineConfig(**ec), device=dev,
+                         devices=tp_devices(tp) if dev == "cuda" else None)
+            if tp > 1:
+                plan = eng.plan
+                check(plan.experts and not plan.expert_ff
+                      and plan.pool == "head"
+                      and all(s["stack"]["p0"]["ffn"]["wg"].shape[1]
+                              == c.n_experts // tp for s in eng.params),
+                      f"mixtral tp{tp}: plan experts {plan.experts} "
+                      f"expert_ff {plan.expert_ff} pool {plan.pool}")
+            PA.paged_decode_attention.launches = 0
+            first = []
+            with tap_first_logits(torch, first):
+                for r in mistral_requests(Request, gen_workload,
+                                          cfg.vocab_size)[:2]:
+                    eng.scheduler.enqueue(r, 0.0)
+                eng.step(0.0)
+            n = TP_LOGIT_LAYERS * tp * eng.stats["model_dispatches"]
+            check(dev != "cuda" or PA.paged_decode_attention.launches == n,
+                  f"mixtral tp{tp} {dtype}: paged launches "
+                  f"{PA.paged_decode_attention.launches} != {n}")
+            logits[tp] = first[0]
+            del eng
+            gc.collect()
+        for tp in TP_DEGREES[1:]:
+            out[tp].update(logit_diff(logits[tp], logits[1],
+                                      f"{TP_LOGIT_LAYERS}_layers_{dtype}"))
+        del p, logits
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    for tp in TP_DEGREES[1:]:
+        err = out[tp][f"first_logits_err_over_rms_{TP_LOGIT_LAYERS}_layers_"
+                      "float32"]
+        check(err <= TP_LOGIT_TOL, f"mixtral tp{tp}: the first dispatch's "
+              f"float32 logits at {TP_LOGIT_LAYERS} layers are {err:.3g} x "
+              f"the rms of TP 1's (tolerance {TP_LOGIT_TOL})")
+        print(f"moe: mixtral-8x22b {TP_LOGIT_LAYERS}-layer cut tp{tp} "
+              + json.dumps(out[tp]))
+    return out
+
+
+def moe_phase(torch, DA, PA, configs, zoo, Engine, EngineConfig, Request,
+              gen_workload, flush, dev="cuda"):
+    """mixtral-8x22b (12 layers) on the paged and the dense plane and
+    grok-1-314b (6 layers) on the paged plane, at full width with random
+    bf16 weights from seed 0 on the card, serving the mistral phase's
+    stream; each served kernel input held against the plain version;
+    then the 2-layer TP cut of mixtral. Each model's weights are freed
+    before the next is drawn."""
+    import dataclasses
+    from repro_torch.models import layers as L
+    from repro_torch.serving.kv_offload import tree_leaves
+    out = {}
+    for arch, depth in MOE_DEPTH.items():
+        full = configs.get_config(arch)
+        check(all(getattr(full, k) == v for k, v in MOE_WIDTHS[arch].items()),
+              f"{arch} is not at full width")
+        cfg = dataclasses.replace(full, n_layers=depth)
+        t0 = time.perf_counter()
+        params = zoo.build(cfg).init(
+            torch.Generator(device=dev).manual_seed(0), dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        res = dict(layers=f"{depth} of {full.n_layers}",
+                   init_s=time.perf_counter() - t0,
+                   param_gib=sum(t.numel() * t.element_size()
+                                 for _, t in tree_leaves(params)) / 2 ** 30)
+        check(abs(res["param_gib"] * 2 ** 30 - zoo.build(cfg).n_bytes) < 1,
+              f"{arch}: weights {res['param_gib']} GiB are not n_bytes")
+        served = {"decode": [], "paged": []}
+        outputs = {}
+        for plane, paged in MOE_PLANES[arch]:
+            res[plane], outputs[plane] = moe_serve(
+                torch, DA, PA, L, cfg, params, paged, Engine, EngineConfig,
+                Request, gen_workload, served, dev)
+        if len(outputs) == 2:
+            res.update(agreement(outputs))     # reported, not gated
+        res["card"] = card_line() if dev == "cuda" else "cpu"
+        print(f"moe: {arch} " + json.dumps(res))
+        if dev == "cuda":
+            res["served"] = served_shapes(
+                torch, DA, PA, flush, {k: v for k, v in served.items() if v},
+                arch)
+        if arch == "mixtral-8x22b":
+            cut = {"embed": params["embed"],
+                   "stack": first_layers(params["stack"], TP_LOGIT_LAYERS)}
+        del params
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        if arch == "mixtral-8x22b":
+            t0 = time.perf_counter()
+            res["tp"] = moe_tp_cut(torch, PA, cfg, cut, Engine, EngineConfig,
+                                   Request, gen_workload, dev)
+            del cut
+            gc.collect()
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+            print(f"moe: mixtral-8x22b TP cut took "
+                  f"{time.perf_counter() - t0:.1f}s")
+        out[arch] = res
+    return out
+
+
+def moe_reference_phase(torch, configs, bridge, Engine, EngineConfig,
+                        Request):
+    """Reduced float32 grok-1-314b and mixtral-8x22b (E 4, top 2; H 2,
+    KH 1) on the card against the CPU, token-identical: the dense plane,
+    and the paged plane at TP 1, 2 and 4 (the same tokens at every
+    degree); then the half-expert MoE at TP 4 and 8 (split factors 1 and
+    2), its shards on the one card, against moe_full on the CPU."""
+    import dataclasses
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe_a2a
+    for arch in MOE_DEPTH:
+        cfg = dataclasses.replace(configs.reduced(configs.ARCHS[arch]),
+                                  n_layers=2, dtype="float32")
+        engine_card_vs_cpu(torch, bridge, cfg, False, Engine, EngineConfig,
+                           Request)
+        outs = {tp: engine_card_vs_cpu(torch, bridge, cfg, None, Engine,
+                                       EngineConfig, Request, chips=tp)
+                for tp in TP_DEGREES}
+        check(all(o == outs[1] for o in outs.values()),
+              f"{arch}: TP degrees disagree: {outs}")
+        print(f"moe: reduced float32 {arch} token-identical at TP "
+              f"{', '.join(map(str, TP_DEGREES))} (and card == CPU)")
+    cfg = dataclasses.replace(configs.reduced(configs.ARCHS["mixtral-8x22b"]),
+                              dtype="float32")
+    g = torch.Generator().manual_seed(4)
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {"router": torch.randn(d, E, generator=g) / d ** 0.5,
+         "wg": torch.randn(E, d, f, generator=g) / d ** 0.5,
+         "wu": torch.randn(E, d, f, generator=g) / d ** 0.5,
+         "wd": torch.randn(E, f, d, generator=g) / f ** 0.5}
+    x = torch.randn(4, 16, d, generator=g)
+    ref = L.moe_full(p, cfg, x)
+    for tp in (4, 8):
+        mesh = M.make_mesh(1, tp, devices=["cuda:0"] * tp)
+        hp = dict(zip(("wg", "wu", "wd"),
+                      moe_a2a.reshape_standard_to_halfexpert(
+                          p["wg"], p["wu"], p["wd"], tp)),
+                  router=p["router"])
+        got = moe_a2a.moe_halfexpert(
+            {k: v.cuda() for k, v in hp.items()},
+            dataclasses.replace(cfg, moe_impl="halfexpert", moe_tp=tp),
+            x.cuda(), mesh)
+        err = ((got.cpu() - ref).abs().max() / ref.abs().max()).item()
+        check(got.device.type == "cuda" and err <= 1e-5,
+              f"moe_halfexpert tp{tp}: {err:.3g} of max |moe_full|")
+        print(f"moe: reduced moe_halfexpert at TP {tp} (split factor "
+              f"{tp // E}) on the card == moe_full on the CPU within "
+              f"{err:.3g} of its largest entry")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2040,10 +2336,20 @@ def main() -> None:
     print(f"mistral: phase took {time.perf_counter() - t0:.1f}s; "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
           "allocated after it")
+    t0 = time.perf_counter()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    moe_phase(torch, DA, PA, configs, zoo, Engine, EngineConfig, Request,
+              gen_workload, flush)
+    print(f"moe: phase took {time.perf_counter() - t0:.1f}s; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
+          "allocated after it")
     reference_phase(torch, configs, bridge, zoo, Engine, EngineConfig,
                     Request)
     t0 = time.perf_counter()
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    moe_reference_phase(torch, configs, bridge, Engine, EngineConfig,
+                        Request)
+    print(f"moe: reference phase took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     slot = smollm_slot_phase(torch, PA, configs, zoo, Engine, EngineConfig,
                              Request, gen_workload, flush)
     tp_reference_phase(torch, configs, bridge, Engine, EngineConfig, Request)

@@ -6,7 +6,9 @@ from __future__ import annotations
 
 import torch
 
-GROUPS = (1, 2, 3, 4, 8)            # G = H // KH the kernels are built for
+# G = H // KH the kernels are built for (6: the 48/8 heads of grok-1-314b
+# and mixtral-8x22b, and their 24/4 and 12/2 head shards at TP 2 and 4)
+GROUPS = (1, 2, 3, 4, 6, 8)
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -97,6 +97,7 @@ bool dispatch_gd(int G, int D, const F& f) {
     case 2: REPRO_D(2)
     case 3: REPRO_D(3)
     case 4: REPRO_D(4)
+    case 6: REPRO_D(6)
     case 8: REPRO_D(8)
     default: return false;
   }

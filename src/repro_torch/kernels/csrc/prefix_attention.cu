@@ -435,7 +435,7 @@ struct QueryFn {
 };
 
 bool built_group(int G) {
-  return G == 1 || G == 2 || G == 3 || G == 4 || G == 8;
+  return G == 1 || G == 2 || G == 3 || G == 4 || G == 6 || G == 8;
 }
 
 // A second stream of each device, of the highest priority, with the two
@@ -505,8 +505,8 @@ int repro_prefix_attention(const void* q, const void* kp, const void* vp,
                (long long)n_sfx * sfx_len < Ss)))
     return (int)cudaErrorInvalidValue;
   const int G = H / KH;
-  // the suffix kernel is built for G in {1, 2, 3, 4, 8}: refuse any other
-  // before anything launches
+  // the suffix kernel is built for G in {1, 2, 3, 4, 6, 8}: refuse any
+  // other before anything launches
   if (!built_group(G)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool direct = !sfx && n_split == 1;  // the partial is the result

@@ -29,12 +29,16 @@ AXES = ("data", "model")
 
 @dataclass(frozen=True)
 class Mesh:
-    """A serve submesh: ``devices[s]`` holds shard s."""
+    """A serve submesh: ``devices[s]`` holds shard s. ``data`` > 1 makes
+    a ("data", "model") = (data, len(devices) / data) mesh, devices in
+    row-major order (``make_mesh``); only the half-expert MoE path
+    (``models/moe_a2a.py``) takes one, a serve submesh has data 1."""
     devices: Tuple[torch.device, ...]
+    data: int = 1
 
     @property
     def shape(self) -> dict:
-        return dict(zip(AXES, (1, len(self.devices))))
+        return dict(zip(AXES, (self.data, len(self.devices) // self.data)))
 
     @property
     def size(self) -> int:
@@ -88,6 +92,29 @@ def make_serve_mesh(chips: int, devices: Optional[Sequence] = None,
         raise ValueError(f"chips must be >= 1, got {chips}")
     devs = _take(chips, devices, platform, "a serve submesh")
     return Mesh(tuple(devs[:chips]))
+
+
+def make_mesh(data: int, model: int, devices: Optional[Sequence] = None,
+              platform: str = "cuda") -> Mesh:
+    """A ("data", "model") = (data, model) mesh, device (r, c) at index
+    r * model + c (the JAX package's ``jax.make_mesh`` order); devices as
+    in ``make_serve_mesh``."""
+    if data < 1 or model < 1:
+        raise ValueError(f"mesh shape ({data}, {model})")
+    devs = _take(data * model, devices, platform, "a mesh")
+    return Mesh(tuple(devs[:data * model]), data)
+
+
+def row_mesh(mesh: Mesh, r: int) -> Mesh:
+    """The "model" axis of data row r: its own 1 x model mesh."""
+    m = mesh.shape["model"]
+    return Mesh(mesh.devices[r * m:(r + 1) * m])
+
+
+def column_mesh(mesh: Mesh, c: int) -> Mesh:
+    """The "data" axis of model column c, as a 1 x data mesh (the
+    collectives of ``all_gather`` run over it in data order)."""
+    return Mesh(mesh.devices[c::mesh.shape["model"]])
 
 
 def partition_devices(chips_per_instance: Sequence[int],

@@ -12,17 +12,18 @@ the next preference is tried; an exhausted list replicates the dim.
 A PartitionSpec is a plain tuple here: one entry per dim (a mesh axis
 name, a tuple of names, or None), with the entries the reference's
 functions give (``Policy.pspec`` drops trailing Nones, the pool and span
-specs keep one entry per dim). The rules for "experts",
-"halfexpert", "expert_ff" and "inner" are the reference's, kept for the
-MoE and Mamba stacks that are not ported yet.
+specs keep one entry per dim). The rules for "experts", "expert_ff",
+"expert_in", "halfexpert" and "expert_ff_fsdp" are the reference's and
+lay out the MoE leaves; "inner" is kept for the Mamba stacks, not
+ported yet.
 
 On a serve submesh ("data", "model") = (1, tp) only the "model" axis
 splits anything: ``shard_params`` cuts every leaf along the dims whose
 spec names "model" into tp contiguous pieces, one tensor per shard on
 its shard's device; the whole tensor is not kept. ``ShardPlan`` records
 what the model math needs to know of the layout: which of the heads,
-kv heads, ff and vocab dims are split, and which arm of ``pool_pspec``
-the paged KV pool takes.
+kv heads, ff, vocab, experts and expert ff dims are split, and which arm
+of ``pool_pspec`` the paged KV pool takes.
 """
 
 from __future__ import annotations
@@ -212,9 +213,11 @@ POOL_MODES = {(None, None, "model", None): "head",
 class ShardPlan:
     """How one tensor-parallel instance lays its model and pool over its
     submesh. ``heads``/``kv_heads``/``ff``/``vocab``: whether that dim of
-    the weights is split over the shards (else replicated). ``pool``:
-    the arm of ``pool_pspec`` the KV pool [n_pages, page_size, KH, D]
-    takes ("head", "slot", "page" or "rep")."""
+    the weights is split over the shards (else replicated); ``experts``
+    / ``expert_ff``: whether the MoE experts are split whole over the
+    shards (E / tp a shard), or each expert's ff columns. ``pool``: the
+    arm of ``pool_pspec`` the KV pool [n_pages, page_size, KH, D] takes
+    ("head", "slot", "page" or "rep")."""
     mesh: Mesh
     heads: bool
     kv_heads: bool
@@ -223,6 +226,8 @@ class ShardPlan:
     pool: str
     n_pages: int
     page_size: int
+    experts: bool = False
+    expert_ff: bool = False
 
     @property
     def tp(self) -> int:
@@ -260,17 +265,23 @@ def shard_plan(cfg, mesh: Mesh, n_pages: int, page_size: int,
     specs = param_specs(cfg)
     policy = policy or serve_policy(mesh, param_bytes(cfg))
     ps = param_pspecs(specs, mesh, policy)
-    attn, ffn = ps["stack"]["p0"]["attn"], ps["stack"]["p0"]["ffn"]
+    attn = ps["stack"]["p0"]["attn"]
+    ffns = [p["ffn"] for p in ps["stack"].values()]
+    mlp = next((f["wg"] for f in ffns if "router" not in f), None)
+    moe = next((f["wg"] for f in ffns if "router" in f), None)
 
     def split(pspec, dim):
-        return dim in _model_dims(pspec)
+        return pspec is not None and dim in _model_dims(pspec)
 
     pool = POOL_MODES[pool_pspec((n_pages, page_size, cfg.n_kv_heads,
                                   cfg.head_dim), mesh)]
+    # wg: [layers, embed, ff] (SwiGLU), [layers, experts, expert_in,
+    # expert_ff] (MoE)
     plan = ShardPlan(mesh=mesh, heads=split(attn["wq"], 2),
-                     kv_heads=split(attn["wk"], 2), ff=split(ffn["wg"], 2),
+                     kv_heads=split(attn["wk"], 2), ff=split(mlp, 2),
                      vocab=split(ps["embed"]["tok"], 0), pool=pool,
-                     n_pages=n_pages, page_size=page_size)
+                     n_pages=n_pages, page_size=page_size,
+                     experts=split(moe, 1), expert_ff=split(moe, 3))
     if plan.kv_heads != (pool == "head"):
         raise ValueError(f"kv-head split {plan.kv_heads} disagrees with the "
                          f"{pool}-wise pool")

@@ -4,7 +4,39 @@ code has them, so the two agree in float32 and round alike in bf16."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+# The decode-MoE switch (the JAX package's ``set_ep_decode``): off, the
+# one-token step paths route each token to its experts (``moe_step``); on,
+# they run the capacity dispatch at S = 1 (``moe_full``, exact: its
+# capacity is K), the form that keeps a sharded expert dim parallel.
+_EP_DECODE: bool = False
+
+
+def set_ep_decode(on: bool) -> None:
+    global _EP_DECODE
+    _EP_DECODE = bool(on)
+
+
+def ep_decode() -> bool:
+    return _EP_DECODE
+
+
+# The ambient mesh of the half-expert MoE path (the JAX package's
+# ``set_mesh``): ``forward_full`` of a ``moe_impl == "halfexpert"`` stack
+# runs ``moe_a2a.moe_halfexpert`` on it. None when unset.
+_MESH = None
+
+
+def set_mesh(mesh) -> None:
+    global _MESH
+    _MESH = mesh
+
+
+def get_mesh() -> Optional[object]:
+    return _MESH
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,

@@ -30,6 +30,11 @@ each collective the reference's GSPMD inserts is an explicit call of
     replicated every shard computes the whole attention, no reduce;
   * FFN: ``wg``/``wu`` column-parallel on ff, ``wd`` row-parallel with an
     all-reduce; norms replicated;
+  * MoE FFN: the router replicated (every shard routes alike); experts
+    split whole over the shards when tp divides E ("experts" on
+    "model": each shard computes the tokens routed to its own experts),
+    else every expert's ff columns split ("expert_ff"); either way the
+    shards' partial outputs are all-reduced;
   * LM head: split along the vocab; each shard's (max, index) pair is
     gathered and the lowest index among equal maxima kept, as argmax
     keeps it.
@@ -250,6 +255,116 @@ def mlp_full(p, cfg, x):
     return torch.einsum("...f,fd->...d", (g * u).to(x.dtype), p["wd"])
 
 
+# ---------------------------------------------------------------------
+# MoE FFN (top-k router; capacity dispatch and dropless routed forms)
+# ---------------------------------------------------------------------
+
+# What the routed forms cost: ``calls`` routed calls (one per MoE layer
+# and token group), ``host_syncs`` device-to-host reads (one a call: the
+# per-expert pair counts that size its products) and ``expert_products``
+# (one SwiGLU product per expert hit). Reset and read by chip_smoke.py.
+MOE_STATS = {"calls": 0, "host_syncs": 0, "expert_products": 0}
+
+
+def _route(p, cfg, x):
+    """Router softmax in float32, top-k, renormalised with a 1e-9 floor:
+    x [..., d] -> (topw [..., K] float32, tope [..., K] int64)."""
+    logits = x.float() @ p["router"].float()
+    gates = torch.softmax(logits, dim=-1)
+    topw, tope = torch.topk(gates, cfg.experts_per_token, dim=-1)
+    return topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9), tope
+
+
+def _expert_ffn(x, wg, wu, wd):
+    g = F.silu((x @ wg).float())
+    u = (x @ wu).float()
+    return (g * u).to(x.dtype) @ wd
+
+
+def _standard_layout(cfg) -> None:
+    if cfg.moe_impl != "standard":
+        raise NotImplementedError(
+            f"{cfg.name}: moe_impl {cfg.moe_impl!r} serves only the full "
+            "forward (moe_a2a.moe_halfexpert); the routed forms take the "
+            "standard [E, d, f] experts")
+
+
+def moe_full(p, cfg, x):
+    """Capacity-based top-k dispatch with per-sequence capacity groups:
+    x [B, S, d] -> [B, S, d]. Each (sequence, expert) has cap =
+    max(int(capacity_factor * S * K / E), K) slots, filled in the
+    (s, k)-flattened order; overflow pairs are dropped (their zero rows
+    land in slot cap - 1, their combine weight is 0). Every expert runs
+    on its [B, cap] slots."""
+    _standard_layout(cfg)
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    topw, tope = _route(p, cfg, x)                                # [B, S, K]
+    cap = max(int(cfg.capacity_factor * S * K / E), K)
+    flat = F.one_hot(tope, E).reshape(B, S * K, E)
+    pos = ((torch.cumsum(flat, dim=1) - flat) * flat).sum(-1)    # [B, S*K]
+    keep = pos < cap
+    weight = topw.reshape(B, S * K) * keep
+    e_idx = tope.reshape(B, S * K)
+    c_idx = torch.clamp(pos, max=cap - 1)
+    bidx = torch.arange(B, device=x.device)[:, None].expand(B, S * K)
+    src = torch.repeat_interleave(x, K, dim=1) * keep[..., None].to(x.dtype)
+    disp = torch.zeros((B, E, cap, d), dtype=x.dtype, device=x.device)
+    disp.index_put_((bidx, e_idx, c_idx), src, accumulate=True)
+    g = F.silu(torch.einsum("becd,edf->becf", disp, p["wg"]).float())
+    u = torch.einsum("becd,edf->becf", disp, p["wu"]).float()
+    eo = torch.einsum("becf,efd->becd", (g * u).to(x.dtype), p["wd"])
+    out = eo[bidx, e_idx, c_idx] * weight[..., None].to(x.dtype)
+    return out.reshape(B, S, K, d).sum(2).to(x.dtype)
+
+
+def _routed(p, cfg, x, first: int = 0):
+    """Dropless top-k MoE of tokens x [T, d] through the experts p holds:
+    p["wg"]/["wu"] [E_loc, d, f], p["wd"] [E_loc, f, d], experts first ..
+    first + E_loc - 1 (pairs routed elsewhere contribute 0). The (token,
+    k) pairs are sorted by expert (stably: (token, k) order within one),
+    each expert hit runs one product over its pairs on its own weights,
+    and the results go back to their pairs before the gate-weighted sum
+    over k. The per-expert pair counts are read on the host (one sync).
+    No expert weight is gathered. Returns [T, d]."""
+    topw, tope = _route(p, cfg, x)                                # [T, K]
+    T, K = tope.shape
+    flat = tope.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=cfg.n_experts).tolist()
+    MOE_STATS["calls"] += 1
+    MOE_STATS["host_syncs"] += 1
+    tok = torch.div(order, K, rounding_mode="floor")
+    out = x.new_zeros((T * K, x.shape[-1]))
+    ofs = sum(counts[:first])
+    for e in range(p["wg"].shape[0]):
+        n = counts[first + e]
+        if n:
+            rows = order[ofs:ofs + n]
+            out.index_copy_(0, rows, _expert_ffn(
+                x[tok[ofs:ofs + n]], p["wg"][e], p["wu"][e], p["wd"][e]))
+            MOE_STATS["expert_products"] += 1
+        ofs += n
+    return (out.reshape(T, K, -1) * topw[..., None].to(x.dtype)).sum(1)
+
+
+def moe_step(p, cfg, x):
+    """Dropless top-k MoE of single tokens: x [B, d] -> [B, d]. The same
+    function as the JAX package's gather-based ``moe_step`` (each token
+    through its K experts, weighted by its renormalised gates), computed
+    grouped by expert (``_routed``)."""
+    _standard_layout(cfg)
+    return _routed(p, cfg, x)
+
+
+def moe_extend(p, cfg, x):
+    """Dropless MoE over a chunk x [B, C, d] (chunked prefill): every
+    token routed as by ``moe_step``, so chunked execution cannot diverge
+    from one-shot prefill through drops."""
+    B, C, d = x.shape
+    return moe_step(p, cfg, x.reshape(B * C, d)).reshape(B, C, d)
+
+
 def embed_tokens(p, cfg, tokens):
     return F.embedding(tokens, p["tok"])
 
@@ -322,6 +437,22 @@ def mlp_tp(ps, cfg, hs, plan, step: bool = False):
         else:
             parts.append(mlp_full(p, cfg, h))
     return _reduce_if(parts, plan.ff, plan)
+
+
+def moe_tp(ps, cfg, hs, plan):
+    """The dropless MoE (``moe_step``'s function) on every shard, on
+    tokens [..., d]: each shard routes all tokens (the router is
+    replicated) and computes the pairs of the experts it holds (whole
+    experts when they are split, its ff columns of every expert when the
+    ff dim is split); the partial outputs are all-reduced in shard
+    order."""
+    _standard_layout(cfg)
+    parts = []
+    for s, (p, h) in enumerate(zip(ps, hs)):
+        first = s * p["wg"].shape[0] if plan.experts else 0
+        parts.append(_routed(p, cfg, h.reshape(-1, h.shape[-1]), first)
+                     .reshape(h.shape))
+    return _reduce_if(parts, plan.experts or plan.expert_ff, plan)
 
 
 def _rope_tp(cfg, q, k, positions):

@@ -1,5 +1,6 @@
 """The decoder stack (counterpart of the JAX package's
-``models/transformer.py``) for attention mixers with SwiGLU FFNs: the
+``models/transformer.py``) for attention mixers with SwiGLU or MoE
+FFNs: the
 dense entry points (full sequence, one-token step, chunk extension, with
 sliding windows) and the paged serving ones.
 
@@ -9,9 +10,13 @@ the views ``a[g]``, and the reference's scan over groups is a loop. The
 dense cache is ``{"p{j}": {"k","v": [G, B, S_c, KH, D]}}`` (S_c the
 window for a sliding-window stack: a ring buffer), the KV pool
 ``{"p{j}": {"g{g}": {"k","v"}}}``, one [n_pages, PS, KH, D] pair per
-physical layer. Both are updated in place. Recurrent (rwkv, mamba),
-cross-attention and MoE positions are not ported and raise
-``NotImplementedError``.
+physical layer. Both are updated in place. An FFN is SwiGLU or MoE: the
+full forward runs the capacity dispatch (``layers.moe_full``, or
+``moe_a2a.moe_halfexpert`` on the ambient mesh for the half-expert
+layout), the step and chunk forms the dropless routed one (``moe_step``,
+``moe_extend``; ``moe_full`` at S = 1 under ``common.ep_decode``), as the
+JAX package's. Recurrent (rwkv, mamba) and cross-attention positions are
+not ported and raise ``NotImplementedError``.
 
 The paged forwards also serve a tensor-parallel instance: given a
 ``plan`` (``launch/sharding.py::ShardPlan``), ``params`` and ``pages``
@@ -30,7 +35,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from . import layers as L
-from .common import rms_norm
+from .common import ep_decode, get_mesh, rms_norm
 
 Pytree = Any
 
@@ -65,10 +70,10 @@ class CacheSpec(NamedTuple):
 
 
 def _check_ported(pos: PosPlan) -> None:
-    if pos.mixer != "attn" or pos.cross or pos.ffn != "mlp":
+    if pos.mixer != "attn" or pos.cross or pos.ffn not in ("mlp", "moe"):
         raise NotImplementedError(
-            f"layer position {pos}: only attention mixers with SwiGLU "
-            "FFNs are ported")
+            f"layer position {pos}: only attention mixers with SwiGLU or "
+            "MoE FFNs are ported")
 
 
 def cache_specs(cfg, batch: int, seq: int) -> Pytree:
@@ -148,17 +153,41 @@ def _mlp_step(pf, x_dtype, h):
 
 
 def _ffn_step_tail(p, cfg, pos: PosPlan, x):
-    """norm2 + SwiGLU FFN after the mixer residual, single-token lanes
-    (MoE FFNs are not ported: ``zoo.build`` rejects them) — shared by the
-    dense and paged step paths."""
+    """norm2 + FFN after the mixer residual, single-token lanes — shared
+    by the dense and paged step paths. MoE: the routed ``moe_step``, or
+    under ``ep_decode`` the capacity dispatch at S = 1 (cap = K: exact,
+    dropless)."""
     h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if pos.ffn == "moe":
+        if ep_decode():
+            return x + L.moe_full(p["ffn"], cfg, h2[:, None])[:, 0]
+        return x + L.moe_step(p["ffn"], cfg, h2)
     return x + _mlp_step(p["ffn"], x.dtype, h2)
 
 
 def _ffn_extend_tail(p, cfg, pos: PosPlan, x):
-    """norm2 + SwiGLU FFN over a chunk."""
+    """norm2 + FFN over a chunk (MoE dropless: a chunk equals the full
+    sequence)."""
     h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if pos.ffn == "moe":
+        return x + L.moe_extend(p["ffn"], cfg, h2)
     return x + L.mlp_full(p["ffn"], cfg, h2)
+
+
+def _ffn_full_tail(p, cfg, pos: PosPlan, x):
+    """norm2 + FFN over a full sequence: MoE takes the capacity dispatch
+    (``moe_full``), or the half-expert path on the ambient mesh."""
+    if pos.ffn != "moe":
+        return _ffn_extend_tail(p, cfg, pos, x)
+    h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if cfg.moe_impl == "halfexpert":
+        from .moe_a2a import moe_halfexpert
+        mesh = get_mesh()
+        if mesh is None:
+            raise ValueError(f"{cfg.name}: the half-expert MoE runs on a "
+                             "mesh (models.common.set_mesh)")
+        return x + moe_halfexpert(p["ffn"], cfg, h2, mesh)
+    return x + L.moe_full(p["ffn"], cfg, h2)
 
 
 # ---------------------------------------------------------------------
@@ -188,7 +217,7 @@ def _pos_full(p, cfg, pos: PosPlan, x, want_cache: bool, attn_impl: str,
         cache = kv
     if cfg.parallel_block:
         return x + y + L.mlp_full(p["ffn"], cfg, h), cache
-    return _ffn_extend_tail(p, cfg, pos, x + y), cache
+    return _ffn_full_tail(p, cfg, pos, x + y), cache
 
 
 def forward_full(params, cfg, x, *, want_cache: bool = False,
@@ -373,14 +402,17 @@ def _add(*lists):
     return [sum(xs[1:], xs[0]) for xs in zip(*lists)]
 
 
-def _ffn_tp(ps, cfg, xs, hs, plan, step: bool):
+def _ffn_tp(ps, cfg, pos: PosPlan, xs, hs, plan, step: bool):
     """The FFN half of one position on every shard: x + y + mlp(h) for a
     parallel block (``hs`` the norm1 outputs, xs already x + y), else
-    x + mlp(norm2(x))."""
+    x + ffn(norm2(x)), the MoE in its shard-local dropless form (what
+    ``moe_step``, ``moe_extend`` and ``moe_full`` at S = 1 compute)."""
     fs = [p["ffn"] for p in ps]
     if cfg.parallel_block:
         return _add(xs, L.mlp_tp(fs, cfg, hs, plan, step))
     h2 = _norm_tp(ps, "norm2", xs, cfg.norm_eps)
+    if pos.ffn == "moe":
+        return _add(xs, L.moe_tp(fs, cfg, h2, plan))
     return _add(xs, L.mlp_tp(fs, cfg, h2, plan, step))
 
 
@@ -402,8 +434,8 @@ def _forward_tp(params, cfg, pages, plan, kind: str, x, xd, table, *rest):
                 hd = _norm_tp(ps, "norm1", xd, eps)
                 yc, yd, _ = L.attn_mixed_paged_tp(attn, cfg, h, hd, pg,
                                                   table, *rest, plan)
-                x = _ffn_tp(ps, cfg, _add(x, yc), h, plan, False)
-                xd = _ffn_tp(ps, cfg, _add(xd, yd), hd, plan, True)
+                x = _ffn_tp(ps, cfg, pos, _add(x, yc), h, plan, False)
+                xd = _ffn_tp(ps, cfg, pos, _add(xd, yd), hd, plan, True)
                 continue
             if kind == "step":
                 y, _ = L.attn_step_paged_tp(attn, cfg, h, pg, table,
@@ -411,5 +443,6 @@ def _forward_tp(params, cfg, pages, plan, kind: str, x, xd, table, *rest):
             else:
                 y, _ = L.attn_extend_paged_tp(attn, cfg, h, pg, table,
                                               rest[0], plan)
-            x = _ffn_tp(ps, cfg, _add(x, y), h, plan, kind == "step")
+            x = _ffn_tp(ps, cfg, pos, _add(x, y), h, plan,
+                        kind == "step")
     return ((x, xd) if kind == "mixed" else x), pages

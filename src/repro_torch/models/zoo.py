@@ -1,9 +1,9 @@
 """Model zoo API of the port: ``build(cfg)`` -> a ``ModelAPI`` with the
 dense and paged serving entry points (counterpart of the JAX package's
 ``models/zoo.py``). Decoder stacks of attention mixers with dense
-(SwiGLU) FFNs are ported, with or without a sliding window; a windowed
-stack has no paged entry points (None, as in the reference: the page
-pool holds no ring buffer). Encoder-decoder, MoE and recurrent stacks
+(SwiGLU) or MoE FFNs are ported, with or without a sliding window; a
+windowed stack has no paged entry points (None, as in the reference: the
+page pool holds no ring buffer). Encoder-decoder and recurrent stacks
 raise ``NotImplementedError``. Training (``loss``) is not ported.
 
 Batch dicts hold int32 tensors on the model's device (``start``/``pos``
@@ -81,11 +81,39 @@ class ModelAPI:
     def n_bytes(self) -> int:
         return bridge.param_bytes(self.cfg)
 
+    @property
+    def n_active_params(self) -> int:
+        """Parameters a token touches: leaves with an "experts" axis
+        scaled by K / E (the JAX package's ``n_active_params``)."""
+        cfg = self.cfg
+        return _count(self.specs, lambda s: (
+            cfg.experts_per_token / cfg.n_experts
+            if cfg.n_experts and "experts" in s.axes else 1.0))
+
     def shard_plan(self, mesh, n_pages: int, page_size: int):
         """The layout of this model and a pool of n_pages x page_size on
         ``mesh`` under ``serve_policy`` (``launch/sharding.py``)."""
         from ..launch.sharding import shard_plan
         return shard_plan(self.cfg, mesh, n_pages, page_size)
+
+
+def _count(tree, weight) -> int:
+    """sum over the leaves of numel x weight(spec), as an int."""
+    total = 0.0
+
+    def walk(t):
+        nonlocal total
+        if isinstance(t, bridge.Spec):
+            n = 1
+            for d in t.shape:
+                n *= d
+            total += n * weight(t)
+            return
+        for v in t.values():
+            walk(v)
+
+    walk(tree)
+    return int(total)
 
 
 def _build_decoder(cfg: ModelConfig) -> ModelAPI:
@@ -217,8 +245,6 @@ def build(cfg: ModelConfig) -> ModelAPI:
     if cfg.encoder_decoder:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder stacks are "
                                   "not ported yet")
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: MoE FFNs are not ported yet")
     if any(p.mixer != "attn" or p.cross for p in T.layer_plan(cfg)):
         raise NotImplementedError(f"{cfg.name}: recurrent and cross-"
                                   "attention positions are not ported yet")

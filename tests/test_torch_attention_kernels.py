@@ -304,4 +304,4 @@ def test_wrappers_take_strided_views_and_reject_misaligned_ones():
         pre_check(qp, kp, kp.clone(), (ks[:, :2], ks[:, :2], sl))
     with pytest.raises(ValueError):            # G 5 is not built
         pre_check(torch.zeros(2, 15, 64), kp, kp.clone())
-    assert checks.GROUPS == (1, 2, 3, 4, 8)
+    assert checks.GROUPS == (1, 2, 3, 4, 6, 8)

@@ -952,3 +952,107 @@ def test_tp_engine_card_matches_cpu(card, arch, heads, kv_heads, tp):
     assert outs["cuda"] == outs["cpu"]
     assert stats["cuda"] == stats["cpu"]
     assert stats["cuda"]["reused_tokens"] > 0
+
+
+# ---------------------------------------------------------------------------
+# MoE models: G 6 kernels (48/8 heads and their TP shards), MoE engines
+# ---------------------------------------------------------------------------
+
+# (B, H, KH, page, P, n_pages, D): grok-1-314b / mixtral-8x22b decode
+# (48 / 8 heads, D 128) at one chip and their head shards at TP 2 and 4
+MOE_PAGED = [(8, 48, 8, 16, 64, 600, 128), (2, 24, 4, 16, 64, 300, 128),
+             (8, 12, 2, 16, 64, 600, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MOE_PAGED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_g6_paged_partials_and_decode_match_plain(card, case, dtype):
+    """G 6 at D 128: paged decode and its partials entry on ragged lanes
+    (one of them empty), and the split-K decode on the model-layout view
+    of a dense cache of the same lanes, each against its plain version."""
+    B, H, KH, page, P, n_pages, D = case
+    q, kp, vp, pt, lens = _cuda_inputs(*case, seed=31, dtype=dtype)
+    lens[1] = 0
+    _assert_close(PA.paged_decode_attention(q, kp, vp, pt, lens),
+                  PA.paged_decode_attention_plain(q, kp, vp, pt, lens),
+                  dtype)
+    n_splits, pps = PA.plan_for(q, kp, pt)
+    acc, m, l = PA.paged_decode_partials(q, kp, vp, pt, lens)
+    pacc, pm, pl = PA.paged_decode_partials_plain(q, kp, vp, pt, lens,
+                                                  n_splits, pps)
+    assert acc.shape == (B, KH, n_splits, 6, D)
+    torch.testing.assert_close(m, pm, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(l, pl, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(acc, pacc, atol=1e-4, rtol=1e-4)
+    rng = np.random.default_rng(32)
+    S = P * page
+    k = _card(rng, dtype, B, S, KH, D).transpose(1, 2)
+    v = _card(rng, dtype, B, S, KH, D).transpose(1, 2)
+    n0 = decode_attention.launches
+    got = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == n0 + 1
+    _assert_close(got, decode_attention_plain(q, k, v, lens), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,paged,tp", [
+    ("mixtral-8x22b", None, 1), ("grok-1-314b", False, 1),
+    ("grok-1-314b", None, 2), ("mixtral-8x22b", None, 4)])
+def test_moe_engine_card_matches_cpu(card, arch, paged, tp):
+    """Reduced float32 MoE engines (E 4, top 2) on the card against the
+    same engines on the CPU: token-identical, the same stats, the routed
+    MoE reading its expert counts back once a call, and the data plane's
+    kernel launched once per layer (and shard) per dispatch or decode
+    batch."""
+    import dataclasses
+    from repro_torch import bridge
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.core.request import Request
+    from repro_torch.models import layers as L
+    from repro_torch.serving.engine import Engine, EngineConfig
+    cfg = dataclasses.replace(reduced(ARCHS[arch]), n_layers=2,
+                              dtype="float32")
+    params = bridge.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    outs, stats = {}, {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(cfg, params, EngineConfig(
+            max_context=64, chunk_size=16, max_batch_tokens=64,
+            capacity_tokens=4096 // tp, page_size=16, paged=paged,
+            chips_per_instance=tp), device=dev,
+            devices=[dev] * tp if dev == "cuda" and tp > 1 else None)
+        reqs = [Request(tokens=p, max_new_tokens=4)
+                for p in _dense_stream(cfg.vocab_size)]
+        n0 = (PA.paged_decode_attention.launches,
+              PA.paged_decode_partials.launches,
+              DA.decode_attention.launches)
+        m0 = dict(L.MOE_STATS)
+        now, done = 0.0, []
+        for wave in (reqs[:2], reqs[2:]):
+            for r in wave:
+                eng.scheduler.enqueue(r, now)
+            target = len(done) + len(wave)
+            while len(done) < target:
+                done += eng.step(now)
+                now += 0.01
+        got = (PA.paged_decode_attention.launches - n0[0],
+               PA.paged_decode_partials.launches - n0[1],
+               DA.decode_attention.launches - n0[2])
+        calls = L.MOE_STATS["calls"] - m0["calls"]
+        assert calls > 0 and L.MOE_STATS["host_syncs"] - m0["host_syncs"] \
+            == calls
+        if dev == "cuda":
+            n = cfg.n_layers * tp
+            if paged is False:
+                assert got == (0, 0, n * eng.stats["decode_batches"])
+            elif eng.plan is None or eng.plan.pool == "head":
+                assert got == (n * eng.stats["model_dispatches"], 0, 0)
+            else:
+                assert got == (0, n * eng.stats["model_dispatches"], 0)
+        outs[dev] = [list(r.output_tokens) for r in reqs]
+        stats[dev] = {k: v for k, v in eng.stats.items()
+                      if not k.endswith("_seconds")}
+    assert outs["cuda"] == outs["cpu"]
+    assert stats["cuda"] == stats["cpu"]
+    assert stats["cuda"]["reused_tokens"] > 0

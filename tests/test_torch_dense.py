@@ -256,8 +256,9 @@ def test_build_admits_windowed_stacks_without_paged_entries():
     full = tzoo.build(dataclasses.replace(TARCHS["mistral-7b"],
                                           sliding_window=0))
     assert full.decode_paged is not None
-    for arch in ("rwkv6-7b", "jamba-v0.1-52b", "mixtral-8x22b",
-                 "whisper-tiny", "llama-3.2-vision-11b"):
+    assert tzoo.build(TARCHS["mixtral-8x22b"]).decode_paged is None
+    for arch in ("rwkv6-7b", "jamba-v0.1-52b", "whisper-tiny",
+                 "llama-3.2-vision-11b"):
         with pytest.raises(NotImplementedError):
             tzoo.build(TARCHS[arch])
 

@@ -137,9 +137,39 @@ def test_mixed_paged_spec_matches_jax(models):
 
 
 def test_build_raises_for_unported_configs():
-    for arch in ("rwkv6-7b", "grok-1-314b", "whisper-tiny"):
+    for arch in ("rwkv6-7b", "whisper-tiny"):
         with pytest.raises(NotImplementedError):
             tzoo.build(TARCHS[arch])
+
+
+def test_bridge_round_trip_keeps_the_moe_router_float32():
+    """A bf16 MoE model: its router leaves are float32 (the JAX package's
+    pinned dtype) and cross as float32, the experts as uint16 bit views;
+    param_bytes counts each leaf in its own dtype, as the JAX package's
+    n_bytes (at full width too), and init_params draws the router in
+    float32."""
+    jcfg, tcfg = _cfgs("grok-1-314b")
+    jcfg = dataclasses.replace(jcfg, dtype="bfloat16")
+    tcfg = dataclasses.replace(tcfg, dtype="bfloat16")
+    jparams = _np_tree(jzoo.build(jcfg).init(jax.random.PRNGKey(1)))
+    assert jparams["stack"]["p0"]["ffn"]["router"].dtype == np.float32
+    bits = jax.tree.map(lambda a: a.view(np.uint16)
+                        if a.dtype != np.float32 else a, jparams)
+    t = bridge.tree_from_numpy(bits, "cpu")
+    ffn = t["stack"]["p0"]["ffn"]
+    assert ffn["router"].dtype == torch.float32
+    assert ffn["wg"].dtype == torch.bfloat16
+    jax.tree.map(np.testing.assert_array_equal, bridge.tree_to_numpy(t),
+                 bits)
+    assert bridge.param_bytes(tcfg) == jzoo.build(jcfg).n_bytes
+    for arch in ("grok-1-314b", "mixtral-8x22b"):
+        assert bridge.param_bytes(TARCHS[arch]) \
+            == jzoo.build(ARCHS[arch]).n_bytes
+        assert tzoo.build(TARCHS[arch]).n_active_params \
+            == jzoo.build(ARCHS[arch]).n_active_params
+    own = bridge.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    assert own["stack"]["p0"]["ffn"]["router"].dtype == torch.float32
+    assert own["stack"]["p0"]["ffn"]["wd"].dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

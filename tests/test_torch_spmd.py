@@ -69,7 +69,8 @@ SPEC_STATS = ("spec_proposed_tokens", "spec_accepted_tokens",
               "spec_rejected_tokens", "spec_verify_lanes",
               "spec_draft_dispatches", "spec_degraded")
 BUILDABLE = ("smollm-360m", "internlm2-1.8b", "command-r-35b",
-             "command-r-plus-104b", "llama3-70b", "mistral-7b")
+             "command-r-plus-104b", "llama3-70b", "mistral-7b",
+             "grok-1-314b", "mixtral-8x22b")
 
 
 # The JAX engines of this module jit their dispatches afresh and close
