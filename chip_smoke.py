@@ -88,7 +88,23 @@ From the root of a checkout. It
    executes an E2 migration and a drain migration, card == CPU;
 11. profiles a second, smaller full-width serve with torch.profiler:
    device busy share, launches per step, the costliest kernels, and the
-   paged decode kernel's launches and share of device time.
+   paged decode kernel's launches and share of device time;
+12. (right after the MoE phase) the recurrent, hybrid and cross-attention
+   stacks on the dense plane at full width, random bf16 weights from the
+   seed, each freed before the next: rwkv6-7b (32 layers), jamba-v0.1-52b
+   (16 of 32 layers) and llama-3.2-vision-11b (40 layers), one engine
+   each over 8 embodied-agent requests and a repeat of the first, each
+   enqueued after the previous one finished (max context 4096, chunk 64):
+   every request finished, reuse > 0, every extension reusing at least
+   the previous prompt_len - 1 tokens (the snapshot boundary), the
+   repeat's outputs equal to the first's, split-K launches = its calls a
+   decode batch (0 / 2 / 48) x decode batches, every split-K input held
+   against the plain version and timed; whisper-tiny in float32 (1500
+   encoder frames, 8 decode steps each equal to a full prefill); one
+   full-width float32 layer of mamba and of RWKV-6, chunk form against
+   chained steps; and (after the MoE reference phase) the reduced
+   float32 rwkv6, jamba and VLM dense engines on the snapshot stream,
+   card == CPU.
 
 Any failed check exits non-zero. The last line is the JSON result.
 Exits non-zero with no result when no CUDA device is present or when
@@ -1105,49 +1121,56 @@ def serve_waves(eng, reqs, first=2, max_iters=5000):
 
 
 @contextlib.contextmanager
-def tap_decode_kernels(torch, n_layers, served):
+def tap_decode_kernels(torch, per_dispatch, served):
     """While open, the model's calls of the split-K decode and paged
     kernels go straight through to their wrappers (whose launch counts
-    stay their own), and the inputs of each dispatch's first-layer call
-    are kept in ``served[kind]`` ("decode", "paged"): q's shape, the
-    cache's ([B, KH, S, D] view or [N, PS, KH, D] pool) shape, the page
-    table (None for decode) and lens, cloned on the device without a
-    wait. Every layer of a dispatch gets the same lanes."""
+    stay their own). A dispatch makes ``per_dispatch`` calls of a kernel
+    (0: none, and nothing is tapped); of them the first call with each
+    cache shape has its inputs kept in ``served[kind]`` ("decode",
+    "paged"): q's shape, the cache's ([B, KH, S, D] view or [N, PS, KH, D]
+    pool) shape, the page table (None for decode) and lens, cloned on the
+    device without a wait. Every call of one shape in a dispatch gets the
+    same lanes (a VLM's self- and cross-attention calls differ in
+    shape)."""
     from repro_torch.models import attention as A
     orig = {"decode": A._split_k_decode, "paged": A.paged_decode_attention}
     calls = dict.fromkeys(orig, 0)
-    before = {kind: len(served[kind]) for kind in orig}
+    seen = {kind: set() for kind in orig}
 
     def tapped(kind):
         def call(q, k, v, *rest):
-            if calls[kind] % n_layers == 0:
+            if calls[kind] % per_dispatch == 0:
+                seen[kind].clear()
+            if tuple(k.shape) not in seen[kind]:
+                seen[kind].add(tuple(k.shape))
                 pt = rest[0].clone() if kind == "paged" else None
                 served[kind].append((tuple(q.shape), tuple(k.shape), pt,
                                      rest[-1].clone()))
             calls[kind] += 1
             return orig[kind](q, k, v, *rest)
         return call
-    A._split_k_decode, A.paged_decode_attention = (tapped("decode"),
-                                                   tapped("paged"))
+    if per_dispatch:
+        A._split_k_decode, A.paged_decode_attention = (tapped("decode"),
+                                                       tapped("paged"))
     try:
         yield
     finally:
         A._split_k_decode = orig["decode"]
         A.paged_decode_attention = orig["paged"]
     for kind, n in calls.items():
-        check(n == n_layers * (len(served[kind]) - before[kind]),
-              f"{kind}: {n} calls are not {n_layers} a dispatch")
+        check(n % max(per_dispatch, 1) == 0,
+              f"{kind}: {n} calls are not {per_dispatch} a dispatch")
 
 
 def served_shapes(torch, DA, PA, flush, served, model):
     """Hold each kernel against its plain version on every input the
     main path gave it (``tap_decode_kernels``): the same shapes, lens and
     page tables, random bf16 q and KV; then time the last input of each
-    lane count beside its bound, its plain version and SDPA. Returns
-    {kind: [(lane count, dispatches, timed row)]}."""
+    lane count (and, for split-K, cache length) beside its bound, its
+    plain version and SDPA. Returns {kind: [(lane count, inputs, timed
+    row)]}."""
     g = torch.Generator(device="cuda").manual_seed(7)
     bf = torch.bfloat16
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
     for kind, calls in served.items():
         last = {}
@@ -1170,37 +1193,48 @@ def served_shapes(torch, DA, PA, flush, served, model):
                 close(torch, f"decode served {model} B{B} "
                       f"lens {lens.tolist()}", DA.decode_attention(*inp),
                       DA.decode_attention_plain(*inp), BF16)
-            n = last.get(B, (0,))[0]
-            last[B] = (n + 1, inp, masked)
-        counts = {b: c[0] for b, c in sorted(last.items())}
+            key = (B, ks[2]) if kind == "decode" else (B,)
+            n = last.get(key, (0,))[0]
+            last[key] = (n + 1, inp, masked)
+        counts = {k: c[0] for k, c in sorted(last.items())}
         print(f"{model}: {kind} kernel held against its plain version on "
-              f"all {len(calls)} served inputs (dispatches by lane count: "
+              f"all {len(calls)} served inputs (by lane count"
+              f"{' and cache length' if kind == 'decode' else ''}: "
               f"{counts})")
-        for B, (n, inp, masked) in sorted(last.items()):
+        for key, (n, inp, masked) in sorted(last.items()):
+            B = key[0]
             if kind == "paged":
                 row = paged_timed(torch, PA, flush, model,
                                   f"paged served {model} B{B}", inp, masked)
             else:
-                q, k, v, lens = inp
-                S, KH = k.shape[2], k.shape[1]
-                ntok = int(lens.sum())
-                mask = (torch.arange(S, device="cuda")[None, :]
-                        < lens[:, None])[:, None, None, :]
-                row = measure_row(
-                    torch, {}, flush, "decode_served",
-                    f"{model} dense serve B{B}",
-                    lambda a=inp: DA.decode_attention(*a),
-                    lambda a=inp: DA.decode_attention_plain(*a),
-                    lambda q=q, k=k, v=v, m=mask: sdpa(
-                        q[:, :, None], k, v, attn_mask=m,
-                        enable_gqa=True)[:, :, 0],
-                    ntok * KH * q.shape[2] * 2 * 2 + 2 * q.numel() * 2
-                    + q.shape[0] * 4, 4 * ntok * q.shape[1] * q.shape[2])
-                ns, split_len = DA.plan_for(q, k)
-                row.update(B=B, S=S, lens=lens.tolist(), n_splits=ns,
-                           split_len=split_len)
+                row = decode_row(torch, DA, flush,
+                                 f"{model} dense serve B{B} S{key[1]}", inp)
             rows.setdefault(kind, []).append((B, n, row))
     return rows
+
+
+def decode_row(torch, DA, flush, label, inp):
+    """Time the split-K decode kernel on ``inp`` = (q [B, H, D], k / v
+    [B, KH, S, D] views, lens [B]) beside its plain version, SDPA masked
+    to the lens and the bound of the valid KV bytes (``measure_row``)."""
+    q, k, v, lens = inp
+    S, KH = k.shape[2], k.shape[1]
+    ntok = int(lens.sum())
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = measure_row(
+        torch, {}, flush, "decode_served", label,
+        lambda a=inp: DA.decode_attention(*a),
+        lambda a=inp: DA.decode_attention_plain(*a),
+        lambda q=q, k=k, v=v, m=mask: sdpa(
+            q[:, :, None], k, v, attn_mask=m, enable_gqa=True)[:, :, 0],
+        ntok * KH * q.shape[2] * 2 * 2 + 2 * q.numel() * 2
+        + q.shape[0] * 4, 4 * ntok * q.shape[1] * q.shape[2])
+    ns, split_len = DA.plan_for(q, k)
+    row.update(B=q.shape[0], S=S, H=q.shape[1], KH=KH, D=q.shape[2],
+               lens=lens.tolist(), n_splits=ns, split_len=split_len)
+    return row
 
 
 def mistral_phase(torch, DA, PA, cfg, zoo, Engine, EngineConfig, Request,
@@ -2275,6 +2309,502 @@ def moe_reference_phase(torch, configs, bridge, Engine, EngineConfig,
               f"{err:.3g} of its largest entry")
 
 
+# ---------------------------------------------------------------------------
+# recurrent, hybrid and cross-attention stacks on the dense plane
+# ---------------------------------------------------------------------------
+
+# served at full width; jamba cut to 16 of 32 layers (two whole groups of
+# its 8-position pattern: 2 attention and 8 MoE positions) to fit the card
+REC_DEPTH = {"rwkv6-7b": 32, "jamba-v0.1-52b": 16,
+             "llama-3.2-vision-11b": 40}
+REC_WIDTHS = {
+    "rwkv6-7b": dict(d_model=4096, d_ff=14336, vocab_size=65536,
+                     rwkv_head_dim=64, attention_free=True,
+                     dtype="bfloat16"),
+    "jamba-v0.1-52b": dict(d_model=4096, n_heads=32, n_kv_heads=8,
+                           head_dim=128, d_ff=14336, vocab_size=65536,
+                           n_experts=16, experts_per_token=2,
+                           mamba_d_state=16, mamba_d_conv=4,
+                           mamba_expand=2, dtype="bfloat16"),
+    "llama-3.2-vision-11b": dict(d_model=4096, n_heads=32, n_kv_heads=8,
+                                 head_dim=128, d_ff=14336,
+                                 vocab_size=128256, n_vision_tokens=1600,
+                                 dtype="bfloat16")}
+REC_ECONF = dict(max_context=4096, chunk_size=64, max_batch_tokens=256,
+                 page_size=16, capacity_tokens=65536)
+WHISPER_WIDTH = dict(n_layers=4, n_encoder_layers=4, d_model=384,
+                     n_heads=6, n_kv_heads=6, head_dim=64, d_ff=1536,
+                     vocab_size=51865, max_target_len=448)
+WHISPER_FRAMES = 1500     # Whisper's 30 s window after its stride-2 conv
+MIXER_TOL = 1e-4          # float32 chunk form vs chained steps, of max |x|
+
+
+def rec_configs(configs):
+    """The served configs at full width (jamba cut in depth)."""
+    import dataclasses
+    out = {}
+    for arch, depth in REC_DEPTH.items():
+        full = configs.get_config(arch)
+        check(all(getattr(full, k) == v for k, v in REC_WIDTHS[arch].items()),
+              f"{arch} is not at full width")
+        out[arch] = dataclasses.replace(full, n_layers=depth)
+    return out
+
+
+def agent_requests(Request, gen_workload, vocab):
+    """8 embodied-agent requests (seed 0: step k's prompt extends step
+    k-1's with the action and the observation), with the first prompt
+    repeated right after it. The repeat comes before the stream's second
+    task splits the first prompt's radix node: after that split the dense
+    plane's slab filed under the tail's key is stale (the reference's
+    behaviour, ROADMAP queue 3), and a VLM repeat would reuse misaligned
+    KV; the recurrent stacks' snapshots are keyed by tokens and do not
+    care."""
+    reqs = [Request(tokens=tuple(t % vocab for t in r.tokens),
+                    max_new_tokens=r.max_new_tokens, workload=r.workload)
+            for r in gen_workload("agent", 8, seed=0)]
+    reqs.insert(1, Request(tokens=reqs[0].tokens,
+                           max_new_tokens=reqs[0].max_new_tokens,
+                           workload="agent"))
+    return reqs
+
+
+def split_k_calls(cfg):
+    """Split-K decode calls a decode batch: one per attention position
+    and one per cross-attention sub-block, in every group."""
+    from repro_torch.models.transformer import layer_plan
+    return cfg.n_groups * sum((p.mixer == "attn") + p.cross
+                              for p in layer_plan(cfg))
+
+
+def serve_one_by_one(eng, reqs, now=0.0, walls=None, max_iters=40000):
+    """Enqueue each request after the previous one finished (so its
+    snapshot or slabs exist); returns (engine steps, reused tokens of
+    each request, the engine clock). ``walls``: a dict that gathers the
+    host wall of the steps that ran a decode batch ("decode") and of the
+    others ("prefill"; a step returns after the host read its tokens)."""
+    steps, reuse = 0, []
+    for r in reqs:
+        before = eng.stats["reused_tokens"]
+        eng.scheduler.enqueue(r, now)
+        done = []
+        while not done and steps < max_iters:
+            batches = eng.stats["decode_batches"]
+            t0 = time.perf_counter()
+            done = eng.step(now)
+            if walls is not None:
+                kind = ("decode" if eng.stats["decode_batches"] > batches
+                        else "prefill")
+                walls[kind] = walls.get(kind, 0.0) + time.perf_counter() - t0
+            now += 0.01
+            steps += 1
+        check(done == [r], f"request {r.request_id} did not finish alone")
+        reuse.append(eng.stats["reused_tokens"] - before)
+    return steps, reuse, now
+
+
+def repeat_oracle(torch, eng, r, dev):
+    """The outputs a fully matched prompt must get on an attention-only
+    dense plane: the one stored slab's first prompt_len - 1 positions
+    (the first request's KV) copied into a fresh cache, the last prompt
+    token extended alone, then greedy decode steps — zoo entry points
+    only, the same function the engine computes for the repeat."""
+    check(len(eng.kv_store) == 1, f"{len(eng.kv_store)} slabs stored")
+    slab = next(iter(eng.kv_store.values()))
+    L = len(r.tokens) - 1
+    cache = {pj: {n: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+                  for n, s in c.items()}
+             for pj, c in eng.api.cache_specs(
+                 1, eng.econf.max_context).items()}
+    for pj, c in slab.items():
+        for n in ("k", "v"):
+            cache[pj][n][:, :, :L].copy_(c[n][:, :, :L])
+    nxt, cache = eng.api.extend(
+        eng.params, cache, {"tokens": torch.tensor([r.tokens[L:]],
+                                                   device=dev), "start": L})
+    outs = [int(nxt[0])]
+    for t in range(r.max_new_tokens - 1):
+        nxt, cache = eng.api.decode(eng.params, cache,
+                                    {"tokens": nxt, "pos": L + 1 + t})
+        outs.append(int(nxt[0]))
+    return outs
+
+
+def rec_serve(torch, DA, cfg, params, Engine, EngineConfig, Request,
+              gen_workload, served, dev="cuda"):
+    """One dense engine over the agent stream with the split-K count at
+    0: every request finished; reuse > 0; each extension of the previous
+    prompt reuses at least its prompt_len - 1 tokens, the repeat exactly
+    prompt_len - 1; split-K launches = calls a decode batch x decode
+    batches. A recurrent stack's repeat must give the first request's
+    outputs: both end their prefill with the same one-token chunk from
+    the same state (the snapshot boundary). An attention-only stack's
+    first request prefills its last token inside a chunk and the repeat
+    alone, and bf16 products of another row count round otherwise
+    (random-init logits amplify it), so its repeat is held to
+    ``repeat_oracle`` exactly and its agreement with the first request
+    is reported."""
+    eng = Engine(cfg, params, EngineConfig(**REC_ECONF), device=dev)
+    check(not eng.paged, f"{cfg.name}: not on the dense plane")
+    reqs = agent_requests(Request, gen_workload, cfg.vocab_size)
+    per = split_k_calls(cfg)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    DA.decode_attention.launches = 0
+    steps, reuse, now, wall, walls = 0, [], 0.0, 0.0, {}
+    for part in (reqs[:2], reqs[2:]):
+        with tap_decode_kernels(torch, per, served):
+            t0 = time.perf_counter()
+            n, part_reuse, now = serve_one_by_one(eng, part, now, walls)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+        steps += n
+        reuse += part_reuse
+        if len(reuse) == 2 and not eng.has_recurrent:
+            # before the next task splits the first prompt's node
+            launches = DA.decode_attention.launches
+            oracle = repeat_oracle(torch, eng, reqs[1], dev)
+            DA.decode_attention.launches = launches
+    launches = DA.decode_attention.launches
+    name = f"{cfg.name} dense"
+    check_outputs(name, reqs, cfg.vocab_size)
+    st = eng.stats
+    check(st["reused_tokens"] > 0, f"{name}: no prefix reuse")
+    extensions = 0
+    for prev, r, n in zip(reqs[1:], reqs[2:], reuse[2:]):
+        if r.tokens[:len(prev.tokens)] == prev.tokens:
+            extensions += 1
+            check(n >= len(prev.tokens) - 1,
+                  f"{name}: request {r.request_id} reused {n} < "
+                  f"{len(prev.tokens) - 1} of the step it extends")
+    check(extensions > 0, f"{name}: the stream holds no extension")
+    check(reuse[1] == len(reqs[1].tokens) - 1,
+          f"{name}: the repeat reused {reuse[1]} of {len(reqs[1].tokens)}")
+    same = sum(a == b for a, b in zip(reqs[0].output_tokens,
+                                      reqs[1].output_tokens))
+    if eng.has_recurrent:
+        check(reqs[1].output_tokens == reqs[0].output_tokens,
+              f"{name}: the repeat {reqs[1].output_tokens} != the first "
+              f"request {reqs[0].output_tokens}")
+    else:
+        check(reqs[1].output_tokens == oracle,
+              f"{name}: the repeat {reqs[1].output_tokens} != its oracle "
+              f"{oracle}")
+    check(launches == per * st["decode_batches"] and st["decode_batches"],
+          f"{name}: split-K launches {launches} != {per} x "
+          f"{st['decode_batches']} decode batches")
+    snaps = [t for snap in eng.state_store.values() for c in snap.values()
+             for t in c.values()]
+    reused, prefilled = st["reused_tokens"], st["prefilled_tokens"]
+    out = dict(
+        steps=steps, model_dispatches=st["model_dispatches"],
+        decode_batches=st["decode_batches"], reused_tokens=reused,
+        prefilled_tokens=prefilled, reuse_share=reused / (reused + prefilled),
+        reuse_per_request=reuse, extensions=extensions,
+        repeat_tokens_equal_to_first=f"{same} of {len(reqs[0].output_tokens)}",
+        prompt_lens=[len(r.tokens) for r in reqs], wall_s=wall,
+        steps_per_s=steps / wall, prefill_steps_s=walls.get("prefill", 0.0),
+        decode_steps_s=walls.get("decode", 0.0),
+        prefill_ms_per_token=1e3 * walls.get("prefill", 0.0) / prefilled,
+        decode_ms_per_batch=1e3 * walls.get("decode", 0.0)
+        / max(st["decode_batches"], 1), split_k_per_decode_batch=per,
+        split_k_launches=launches,
+        snapshot_entries=len(eng.state_store),
+        snapshot_bytes=sum(t.numel() * t.element_size() for t in snaps),
+        kv_store_entries=len(eng.kv_store))
+    if dev == "cuda":
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del eng
+    return out
+
+
+def rec_profile(torch, cfg, params, Engine, EngineConfig, Request,
+                gen_workload, n=4):
+    """The first request of the agent stream alone on a new engine, with
+    two windows under torch.profiler (device activity only): ``n``
+    prefill-chunk steps (after 8 unprofiled chunks) and ``n`` decode
+    steps (after one unprofiled decode). For each: the device busy share
+    of the window's wall, launches a step, the device time of the
+    split-K decode (split kernel and merge) and of the cache
+    concatenations, and the costliest kernels. Instrumentation only: the
+    phase's walls are the unprofiled run's; short windows keep the
+    profiler's own processing (seconds per 10^5 events) small."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = Engine(cfg, params, EngineConfig(**REC_ECONF), device="cuda")
+    r = agent_requests(Request, gen_workload, cfg.vocab_size)[0]
+    clock = [0.0]
+
+    def step():
+        eng.step(clock[0])
+        clock[0] += 0.01
+
+    eng.scheduler.enqueue(r, 0.0)
+    for _ in range(8):
+        step()
+    out = {}
+    for kind in ("prefill", "decode"):
+        if kind == "decode":
+            while not r.output_tokens:
+                step()
+            step()
+        check(len(r.output_tokens) + n < r.max_new_tokens,
+              f"{cfg.name}: too few decode steps to profile")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = device_kernels(torch, prof)
+        busy_ms = sum(k[0] for k in kernels) / 1e3
+        if busy_ms == 0.0:
+            return "not measured (the profiler recorded no device time)"
+
+        def ms(*names):
+            return sum(k[0] for k in kernels
+                       if any(x in k[2] for x in names)) / 1e3
+        out[kind] = dict(
+            steps=n, wall_ms=wall * 1e3, device_busy_ms=busy_ms,
+            device_busy_share=busy_ms / (wall * 1e3),
+            launches_per_step=sum(k[1] for k in kernels) / n,
+            split_k_decode_ms=ms("dense_split_kernel", "lse_merge_kernel"),
+            concat_ms=ms("CatArrayBatchedCopy"),
+            top=[dict(kernel=k[2][:60], ms=k[0] / 1e3, calls=k[1])
+                 for k in kernels[:5]])
+    return out
+
+
+def rec_phase(torch, DA, cfgs, zoo, Engine, EngineConfig, Request,
+              gen_workload, flush, dev="cuda"):
+    """rwkv6-7b, jamba-v0.1-52b (16 layers) and llama-3.2-vision-11b at
+    full width, random bf16 weights from seed 0, one dense engine each
+    over the agent stream (``rec_serve``); every split-K input held
+    against the plain version and timed. Each model's weights are freed
+    before the next is drawn."""
+    from repro_torch.serving.kv_offload import tree_leaves
+    out = {}
+    for arch, cfg in cfgs.items():
+        t0 = time.perf_counter()
+        params = zoo.build(cfg).init(
+            torch.Generator(device=dev).manual_seed(0), dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        res = dict(layers=f"{cfg.n_layers}", init_s=time.perf_counter() - t0,
+                   param_gib=sum(t.numel() * t.element_size()
+                                 for _, t in tree_leaves(params)) / 2 ** 30)
+        check(abs(res["param_gib"] * 2 ** 30 - zoo.build(cfg).n_bytes) < 1,
+              f"{arch}: weights {res['param_gib']} GiB are not n_bytes")
+        served = {"decode": [], "paged": []}
+        res["dense"] = rec_serve(torch, DA, cfg, params, Engine,
+                                 EngineConfig, Request, gen_workload, served,
+                                 dev)
+        res["card"] = card_line() if dev == "cuda" else "cpu"
+        if dev == "cuda":
+            res["profile"] = rec_profile(torch, cfg, params, Engine,
+                                         EngineConfig, Request, gen_workload)
+        print(f"recurrent: {arch} " + json.dumps(res))
+        del params
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        check(not served["paged"], f"{arch}: the paged kernel ran")
+        if dev == "cuda" and served["decode"]:
+            res["served"] = served_shapes(torch, DA, None, flush,
+                                          {"decode": served["decode"]}, arch)
+        out[arch] = res
+    return out
+
+
+def whisper_phase(torch, DA, configs, zoo, flush, dev="cuda", cfg=None,
+                  frames_len=WHISPER_FRAMES):
+    """whisper-tiny at full width in float32 (random weights, seed 0):
+    encode 1500 frames and prefill 8 decoder tokens of 2 lanes, then 8
+    decode steps; each step's tokens must equal a full prefill of the
+    prompt so far (tests/test_consistency.py::test_whisper_incremental
+    on the card). The decode runs the split-K kernel twice a layer (self
+    over the 448-position cache, cross over the frames): launches = 8 x
+    2 x layers, every input held against the plain version."""
+    import dataclasses
+    if cfg is None:
+        full = configs.get_config("whisper-tiny")
+        check(all(getattr(full, k) == v for k, v in WHISPER_WIDTH.items()),
+              "whisper-tiny is not at full width")
+        cfg = dataclasses.replace(full, dtype="float32")
+    api = zoo.build(cfg)
+    check(api.extend is None, "whisper-tiny has a chunk extension")
+    params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    frames = 0.02 * torch.randn(2, frames_len, cfg.d_model, generator=g,
+                                device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=g,
+                         device=dev)
+    t0 = time.perf_counter()
+    nxt, cache = api.prefill(params, {"tokens": toks[:, :8],
+                                      "frames": frames})
+    check(tuple(cache["p0"]["k"].shape[2:3]) == (cfg.max_target_len,)
+          and cache["p0"]["ck"].shape[2] == frames_len,
+          f"whisper cache {tuple(cache['p0']['k'].shape)}")
+    served, steps = {"decode": [], "paged": []}, []
+    DA.decode_attention.launches = 0
+    with tap_decode_kernels(torch, 2 * cfg.n_layers, served):
+        for t in range(8, 16):
+            nxt, cache = api.decode(params, cache,
+                                    {"tokens": toks[:, t], "pos": t})
+            full, _ = api.prefill(params, {"tokens": toks[:, :t + 1],
+                                           "frames": frames})
+            steps.append(nxt.tolist())
+            check(nxt.tolist() == full.tolist(),
+                  f"whisper step {t}: decode {nxt.tolist()} != prefill "
+                  f"{full.tolist()}")
+    launches = DA.decode_attention.launches
+    check(launches == 8 * 2 * cfg.n_layers,
+          f"whisper: split-K launches {launches} != 8 x 2 x "
+          f"{cfg.n_layers}")
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    out = dict(frames=frames_len, steps=steps, split_k_launches=launches,
+               wall_s=time.perf_counter() - t0)
+    print("whisper: " + json.dumps(out) + " (every decode step == the "
+          "full prefill's token)")
+    check(not served["paged"], "whisper: the paged kernel ran")
+    if dev == "cuda":
+        out["served"] = served_shapes(torch, DA, None, flush,
+                                      {"decode": served["decode"]},
+                                      "whisper-tiny")
+    return out
+
+
+def one_layer(torch, bridge, cfg, sub, dev, seed):
+    """Group 0's float32 leaves of the first layer position's ``sub``
+    tree, drawn from the specs' init kinds."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(s):
+        shape = s.shape[1:]
+        if s.init in ("zeros", "ones"):
+            return torch.full(shape, float(s.init == "ones"), device=dev)
+        scale = (1.0 / math.sqrt(shape[-2]) if s.init == "fan_in"
+                 else s.scale)
+        return scale * torch.randn(shape, generator=g, device=dev)
+    return {k: draw(v)
+            for k, v in bridge.param_specs(cfg)["stack"]["p0"][sub].items()}
+
+
+def mixer_phase(torch, bridge, cfgs, dev="cuda", S=64):
+    """One full-width layer of each mixer in float32 on the card (mamba
+    at jamba width, RWKV-6 time- and channel-mix at rwkv6 width): the
+    chunk form over S tokens equals S chained one-token steps, outputs
+    and final state within MIXER_TOL of their largest |value| (the two
+    sum in other orders)."""
+    import dataclasses
+    from repro_torch.models import mamba as M
+    from repro_torch.models import rwkv6 as R
+    out = {}
+
+    def gate(name, got, want):
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        check(math.isfinite(err) and err <= MIXER_TOL,
+              f"{name}: chunk form vs steps {err:.3g} of max |x|")
+        out[name] = err
+
+    cfg = dataclasses.replace(cfgs["jamba-v0.1-52b"], dtype="float32")
+    p = one_layer(torch, bridge, cfg, "mamba", dev, 0)
+    x = torch.randn(1, S, cfg.d_model,
+                    generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev)
+    y, c = M.mamba_full(p, cfg, x)
+    ed = cfg.mamba_expand * cfg.d_model
+    cs = {"conv": torch.zeros(1, cfg.mamba_d_conv - 1, ed, device=dev),
+          "ssm": torch.zeros(1, ed, cfg.mamba_d_state, device=dev)}
+    ys = torch.stack([M.mamba_step(p, cfg, x[:, t], cs)[0]
+                      for t in range(S)], 1)
+    gate("mamba y", ys, y)
+    gate("mamba ssm", cs["ssm"], c["ssm"])
+    gate("mamba conv", cs["conv"], c["conv"])
+    del p
+    cfg = dataclasses.replace(cfgs["rwkv6-7b"], dtype="float32")
+    x = torch.randn(1, S, cfg.d_model,
+                    generator=torch.Generator(device=dev).manual_seed(2),
+                    device=dev)
+    H, Dh = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    p = one_layer(torch, bridge, cfg, "time", dev, 3)
+    y, c = R.rwkv_time_full(p, cfg, x)
+    cs = {"state": torch.zeros(1, H, Dh, Dh, device=dev),
+          "shift": torch.zeros(1, cfg.d_model, device=dev)}
+    ys = torch.stack([R.rwkv_time_step(p, cfg, x[:, t], cs)[0]
+                      for t in range(S)], 1)
+    gate("rwkv time y", ys, y)
+    gate("rwkv state", cs["state"], c["state"])
+    p = one_layer(torch, bridge, cfg, "channel", dev, 4)
+    y, _ = R.rwkv_channel_full(p, cfg, x)
+    cs = {"shift_c": torch.zeros(1, cfg.d_model, device=dev)}
+    ys = torch.stack([R.rwkv_channel_step(p, cfg, x[:, t], cs)[0]
+                      for t in range(S)], 1)
+    gate("rwkv channel y", ys, y)
+    print(f"mixers: one full-width float32 layer, chunk form over {S} "
+          f"tokens vs {S} chained steps (gate {MIXER_TOL} of max |x|): "
+          + json.dumps(out))
+    return out
+
+
+def snapshot_card_vs_cpu(torch, bridge, cfg, Engine, EngineConfig, Request):
+    """tests/test_engine_cluster.py's snapshot stream (24 shared tokens
+    alone, then its repeat and an 8-token extension) on the dense engine,
+    card against CPU: outputs and stats identical, the recurrent stacks
+    reusing at least 2 x 23 tokens."""
+    params = bridge.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    shared = tuple(torch.randint(1, cfg.vocab_size, (24,),
+                                 generator=gen).tolist())
+    ext = shared + tuple(torch.randint(1, cfg.vocab_size, (8,),
+                                       generator=gen).tolist())
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(cfg, params, EngineConfig(
+            max_context=64, chunk_size=16, max_batch_tokens=64,
+            capacity_tokens=4096, page_size=16), device=dev)
+        reqs = [Request(tokens=shared, max_new_tokens=3),
+                Request(tokens=shared, max_new_tokens=3),
+                Request(tokens=ext, max_new_tokens=3)]
+        now, done = 0.0, []
+        eng.scheduler.enqueue(reqs[0], now)
+        while len(done) < 1:
+            done += eng.step(now)
+            now += 0.01
+        for r in reqs[1:]:
+            eng.scheduler.enqueue(r, now)
+        while len(done) < 3:
+            done += eng.step(now)
+            now += 0.01
+        check(not eng.paged, f"{cfg.name}: not on the dense plane")
+        check(reqs[0].output_tokens == reqs[1].output_tokens,
+              f"{cfg.name} {dev}: the repeat differs")
+        if eng.has_recurrent:
+            check(eng.stats["reused_tokens"] >= 2 * (len(shared) - 1),
+                  f"{cfg.name} {dev}: reused {eng.stats['reused_tokens']}")
+        outs[dev] = ([list(r.output_tokens) for r in reqs],
+                     dict(eng.stats))
+    check(outs["cuda"] == outs["cpu"],
+          f"{cfg.name}: card and CPU engines disagree: {outs['cuda']} vs "
+          f"{outs['cpu']}")
+    print(f"reference: reduced float32 {cfg.name} dense engine, snapshot "
+          f"stream, on the card == on the CPU (outputs and stats; reused "
+          f"{outs['cuda'][1]['reused_tokens']})")
+
+
+def rec_reference_phase(torch, configs, bridge, Engine, EngineConfig,
+                        Request):
+    import dataclasses
+    for arch in REC_DEPTH:
+        cfg = dataclasses.replace(configs.reduced(configs.ARCHS[arch]),
+                                  dtype="float32")
+        snapshot_card_vs_cpu(torch, bridge, cfg, Engine, EngineConfig,
+                             Request)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2343,12 +2873,28 @@ def main() -> None:
     print(f"moe: phase took {time.perf_counter() - t0:.1f}s; "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
           "allocated after it")
+    t0 = time.perf_counter()
+    rec_cfgs = rec_configs(configs)
+    rec_phase(torch, DA, rec_cfgs, zoo, Engine, EngineConfig, Request,
+              gen_workload, flush)
+    whisper_phase(torch, DA, configs, zoo, flush)
+    mixer_phase(torch, bridge, rec_cfgs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"recurrent: phase took {time.perf_counter() - t0:.1f}s; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
+          "allocated after it")
     reference_phase(torch, configs, bridge, zoo, Engine, EngineConfig,
                     Request)
     t0 = time.perf_counter()
     moe_reference_phase(torch, configs, bridge, Engine, EngineConfig,
                         Request)
     print(f"moe: reference phase took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    rec_reference_phase(torch, configs, bridge, Engine, EngineConfig,
+                        Request)
+    print(f"recurrent: reference phase took "
+          f"{time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     slot = smollm_slot_phase(torch, PA, configs, zoo, Engine, EngineConfig,
                              Request, gen_workload, flush)

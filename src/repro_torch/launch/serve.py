@@ -8,6 +8,10 @@ Runs on the card (``--device cuda``, the default) unless asked for the
 CPU. Without ``--reduced`` the config is served at its full width (real
 forwards of randomly initialized weights, drawn from ``--seed``);
 ``--reduced`` applies ``configs.reduced`` for a CPU-sized smoke run.
+``--arch`` takes every config of the zoo but whisper-tiny (an
+encoder-decoder has no chunk extension, and the engine refuses it); the
+engine serves the recurrent, hybrid and VLM stacks (rwkv6-7b,
+jamba-v0.1-52b, llama-3.2-vision-11b) on the dense plane.
 ``--chips-per-instance 2,1`` makes instance 0 a tensor-parallel instance
 over 2 devices (the mesh-of-meshes, ``serving/cluster.py``): on the CPU
 the shards are emulated; on CUDA it needs as many visible cards as the

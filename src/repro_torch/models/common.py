@@ -4,9 +4,16 @@ code has them, so the two agree in float32 and round alike in bf16."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+
+class CacheSpec(NamedTuple):
+    """Shape and dtype of one cache leaf (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 # The decode-MoE switch (the JAX package's ``set_ep_decode``): off, the
 # one-token step paths route each token to its experts (``moe_step``); on,

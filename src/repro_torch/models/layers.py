@@ -1,6 +1,7 @@
 """Layer forwards (counterpart of the JAX package's ``models/layers.py``):
 the dense forms (full sequence, one-token step against a per-request
-cache, chunk extension) and the paged serving forms.
+cache, chunk extension) of self- and cross-attention, and the paged
+serving forms.
 
 Shapes follow the JAX package: x is [B, S, d] for full sequences, [B, d]
 for one-token steps and [B, C, d] for chunks; projection weights are
@@ -87,6 +88,37 @@ def attn_full(p, cfg, x, *, causal: bool = True, positions=None,
     o = attention(q, k, v, causal=causal, window=window, impl=impl)
     y = torch.einsum("...hk,hkd->...d", o, p["wo"])
     return y, ({"k": k, "v": v} if return_cache else None)
+
+
+def cross_attn_full(p, cfg, x, kv_src, *, impl: str = "auto"):
+    """Cross-attention over a full sequence: queries from x [B, S, d],
+    keys and values projected from kv_src [B, Skv, d]; no RoPE, not
+    causal. Returns (y, {"k","v"} [B, Skv, KH, D])."""
+    q = torch.einsum("...d,dhk->...hk", x, p["wq"])
+    k = torch.einsum("...d,dhk->...hk", kv_src, p["wk"])
+    v = torch.einsum("...d,dhk->...hk", kv_src, p["wv"])
+    o = attention(q, k, v, causal=False, impl=impl)
+    return torch.einsum("...hk,hkd->...d", o, p["wo"]), {"k": k, "v": v}
+
+
+def cross_attn_extend(p, cfg, x, cache):
+    """A prefill chunk x [B, C, d] against the fixed cross KV {"k","v"}
+    [B, Skv, KH, D] (naive attention, as the reference's). Returns
+    (y [B, C, d], cache)."""
+    q = torch.einsum("...d,dhk->...hk", x, p["wq"])
+    o = attention(q, cache["k"], cache["v"], causal=False, impl="naive")
+    return torch.einsum("...hk,hkd->...d", o, p["wo"]), cache
+
+
+def cross_attn_step(p, cfg, x, cache):
+    """One token a lane x [B, d] against the fixed cross KV: every one of
+    the Skv positions is valid, so the call reaches the split-K decode
+    kernel (``attention.decode_attention``) with lens Skv. Returns
+    (y [B, d], cache)."""
+    q = torch.einsum("bd,dhk->bhk", x, p["wq"])
+    o = decode_attention(q, cache["k"], cache["v"],
+                         _on(cache["k"].shape[1], x.device))
+    return torch.einsum("bhk,hkd->bd", o, p["wo"]), cache
 
 
 def attn_step(p, cfg, x, cache, pos, *, window: int = 0):

@@ -1,22 +1,23 @@
 """The decoder stack (counterpart of the JAX package's
-``models/transformer.py``) for attention mixers with SwiGLU or MoE
-FFNs: the
-dense entry points (full sequence, one-token step, chunk extension, with
-sliding windows) and the paged serving ones.
+``models/transformer.py``): the dense entry points (full sequence,
+one-token step, chunk extension, with sliding windows) for every layer
+position of the zoo — attention, mamba (``models/mamba.py``) and RWKV-6
+(``models/rwkv6.py``) mixers, cross-attention sub-blocks, SwiGLU or MoE
+FFNs — and the paged serving ones for attention-only stacks.
 
 Parameters mirror the JAX tree: ``{"p{j}": leaves stacked over
 [n_groups, ...]}`` for the per-group layer plan; group g's weights are
 the views ``a[g]``, and the reference's scan over groups is a loop. The
-dense cache is ``{"p{j}": {"k","v": [G, B, S_c, KH, D]}}`` (S_c the
-window for a sliding-window stack: a ring buffer), the KV pool
-``{"p{j}": {"g{g}": {"k","v"}}}``, one [n_pages, PS, KH, D] pair per
-physical layer. Both are updated in place. An FFN is SwiGLU or MoE: the
-full forward runs the capacity dispatch (``layers.moe_full``, or
-``moe_a2a.moe_halfexpert`` on the ambient mesh for the half-expert
+dense cache is ``{"p{j}": {leaf: [G, B, ...]}}`` (``cache_specs``:
+k / v [G, B, S_c, KH, D], S_c the window for a sliding-window stack: a
+ring buffer; ck / cv for cross-attention; a recurrent position's state),
+the KV pool ``{"p{j}": {"g{g}": {"k","v"}}}``, one [n_pages, PS, KH, D]
+pair per physical layer. Both are updated in place. An FFN is SwiGLU or
+MoE: the full forward runs the capacity dispatch (``layers.moe_full``,
+or ``moe_a2a.moe_halfexpert`` on the ambient mesh for the half-expert
 layout), the step and chunk forms the dropless routed one (``moe_step``,
 ``moe_extend``; ``moe_full`` at S = 1 under ``common.ep_decode``), as the
-JAX package's. Recurrent (rwkv, mamba) and cross-attention positions are
-not ported and raise ``NotImplementedError``.
+JAX package's.
 
 The paged forwards also serve a tensor-parallel instance: given a
 ``plan`` (``launch/sharding.py::ShardPlan``), ``params`` and ``pages``
@@ -30,12 +31,14 @@ over the shards and all-reduces where the reference's GSPMD would.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from . import layers as L
-from .common import ep_decode, get_mesh, rms_norm
+from . import mamba as M
+from . import rwkv6 as R
+from .common import CacheSpec, ep_decode, get_mesh, rms_norm
 
 Pytree = Any
 
@@ -62,31 +65,47 @@ def layer_plan(cfg) -> List[PosPlan]:
     return plan
 
 
-class CacheSpec(NamedTuple):
-    """Shape and dtype of one cache leaf (the reference's
-    ``jax.ShapeDtypeStruct``)."""
-    shape: Tuple[int, ...]
-    dtype: torch.dtype
-
-
 def _check_ported(pos: PosPlan) -> None:
+    """The tensor-parallel forms serve attention mixers with SwiGLU or
+    MoE FFNs only."""
     if pos.mixer != "attn" or pos.cross or pos.ffn not in ("mlp", "moe"):
         raise NotImplementedError(
-            f"layer position {pos}: only attention mixers with SwiGLU or "
-            "MoE FFNs are ported")
+            f"layer position {pos}: the tensor-parallel forms serve "
+            "attention mixers with SwiGLU or MoE FFNs only")
 
 
 def cache_specs(cfg, batch: int, seq: int) -> Pytree:
-    """The decode cache for (batch, seq) context: attention positions
-    hold [G, B, S_c, KH, D] with S_c = min(seq, window or seq)."""
+    """The decode cache for (batch, seq) context, every leaf stacked over
+    the n_groups axis: attention positions hold k / v [G, B, S_c, KH, D]
+    with S_c = min(seq, window or seq) (and, with cross-attention, ck /
+    cv [G, B, n_vision_tokens, KH, D]); recurrent positions their O(1)
+    state (``mamba.mamba_cache_spec``, ``rwkv6.rwkv_cache_spec``)."""
     dt = getattr(torch, cfg.dtype)
+    G = cfg.n_groups
     out = {}
+
+    def stackG(tree):
+        return {n: CacheSpec((G,) + s.shape, s.dtype)
+                for n, s in tree.items()}
+
     for j, pos in enumerate(layer_plan(cfg)):
-        _check_ported(pos)
+        if pos.mixer == "rwkv":
+            out[f"p{j}"] = stackG(R.rwkv_cache_spec(cfg, batch))
+            continue
+        if pos.mixer == "mamba":
+            if pos.cross:
+                raise NotImplementedError(
+                    f"{cfg.name}: a mamba position with cross-attention")
+            out[f"p{j}"] = stackG(M.mamba_cache_spec(cfg, batch))
+            continue
         S_c = min(seq, pos.window) if pos.window else seq
-        s = CacheSpec((cfg.n_groups, batch, S_c, cfg.n_kv_heads,
-                       cfg.head_dim), dt)
-        out[f"p{j}"] = {"k": s, "v": s}
+        s = CacheSpec((batch, S_c, cfg.n_kv_heads, cfg.head_dim), dt)
+        c = {"k": s, "v": s}
+        if pos.cross:
+            c["ck"] = c["cv"] = CacheSpec(
+                (batch, cfg.n_vision_tokens, cfg.n_kv_heads, cfg.head_dim),
+                dt)
+        out[f"p{j}"] = stackG(c)
     return out
 
 
@@ -201,56 +220,118 @@ def _ring(a: torch.Tensor, W: int) -> torch.Tensor:
     return torch.roll(a[:, S - W:], (S - W) % W, dims=1)
 
 
-def _pos_full(p, cfg, pos: PosPlan, x, want_cache: bool, attn_impl: str,
-              causal: bool = True):
-    """One layer position, full sequence. Returns (x, {"k","v"} | {})."""
-    _check_ported(pos)
+def _rwkv(p, cfg, x, cache, full: bool):
+    """An RWKV position: time-mix then channel-mix, each with its
+    residual. ``full``: the chunked forms (``cache`` None or resumed and
+    updated in place), else the one-token steps. Returns (x, cache)."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    y, kv = L.attn_full(p["attn"], cfg, h, causal=causal,
-                        window=pos.window, impl=attn_impl,
-                        return_cache=want_cache)
+    tc = cache and {"state": cache["state"], "shift": cache["shift"]}
+    cc = cache and {"shift_c": cache["shift_c"]}
+    if full:
+        y, tc = R.rwkv_time_full(p["time"], cfg, h, cache=tc)
+    else:
+        y, tc = R.rwkv_time_step(p["time"], cfg, h, tc)
+    x = x + y
+    h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if full:
+        y2, cc = R.rwkv_channel_full(p["channel"], cfg, h2, cache=cc)
+    else:
+        y2, cc = R.rwkv_channel_step(p["channel"], cfg, h2, cc)
+    return x + y2, {**tc, **cc}
+
+
+def _mamba_views(cache):
+    return cache and {"conv": cache["conv"], "ssm": cache["ssm"]}
+
+
+def _pos_full(p, cfg, pos: PosPlan, x, kv_src, want_cache: bool,
+              attn_impl: str, in_cache=None, causal: bool = True):
+    """One layer position, full sequence; ``in_cache`` resumes a
+    recurrent position (its views are updated in place). Returns (x,
+    cache | {})."""
+    if pos.mixer == "rwkv":
+        x, c = _rwkv(p, cfg, x, in_cache, True)
+        return x, (c if want_cache else {})
     cache: Dict[str, torch.Tensor] = {}
-    if want_cache:
-        W = pos.window
-        if W and W < kv["k"].shape[1]:
-            kv = {n: _ring(a, W) for n, a in kv.items()}
-        cache = kv
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if pos.mixer == "attn":
+        y, kv = L.attn_full(p["attn"], cfg, h, causal=causal,
+                            window=pos.window, impl=attn_impl,
+                            return_cache=want_cache)
+        if want_cache:
+            W = pos.window
+            if W and W < kv["k"].shape[1]:
+                kv = {n: _ring(a, W) for n, a in kv.items()}
+            cache.update(kv)
+    else:
+        y, c = M.mamba_full(p["mamba"], cfg, h, cache=_mamba_views(in_cache))
+        cache.update(c)
     if cfg.parallel_block:
-        return x + y + L.mlp_full(p["ffn"], cfg, h), cache
-    return _ffn_full_tail(p, cfg, pos, x + y), cache
+        x = x + y + L.mlp_full(p["ffn"], cfg, h)
+        return x, (cache if want_cache else {})
+    x = x + y
+    if pos.cross:
+        hc = rms_norm(x, p["cross_norm"], cfg.norm_eps)
+        yc, ckv = L.cross_attn_full(p["cross"], cfg, hc, kv_src,
+                                    impl=attn_impl)
+        x = x + yc
+        cache["ck"], cache["cv"] = ckv["k"], ckv["v"]
+    return (_ffn_full_tail(p, cfg, pos, x),
+            cache if want_cache else {})
 
 
-def forward_full(params, cfg, x, *, want_cache: bool = False,
-                 attn_impl: str = "auto", causal: bool = True
+def forward_full(params, cfg, x, *, kv_src=None, want_cache: bool = False,
+                 attn_impl: str = "auto", in_cache=None,
+                 causal: bool = True
                  ) -> Tuple[torch.Tensor, Optional[Pytree]]:
     """x: [B, S, d] embedded inputs -> (hidden [B, S, d], cache | None);
-    the cache's leaves are stacked over groups ([G, B, S_c, KH, D])."""
+    the cache's leaves are stacked over groups ([G, B, ...]).
+    ``kv_src``: [B, Skv, d] cross-attention source (vision or encoder
+    states). ``in_cache``: continue the recurrent positions from a
+    previous state (mamba / RWKV chunked prefill; its leaves are updated
+    in place); attention positions do not resume this way."""
     plan = layer_plan(cfg)
     caches: Dict[str, List[Dict[str, torch.Tensor]]] = {
         f"p{j}": [] for j in range(len(plan))}
     for g in range(cfg.n_groups):
         for j, pos in enumerate(plan):
-            x, c = _pos_full(_group(params[f"p{j}"], g), cfg, pos, x,
-                             want_cache, attn_impl, causal)
-            caches[f"p{j}"].append(c)
+            pj = f"p{j}"
+            x, c = _pos_full(_group(params[pj], g), cfg, pos, x, kv_src,
+                             want_cache, attn_impl,
+                             in_cache=(_group_cache(in_cache, pj, g)
+                                       if in_cache is not None else None),
+                             causal=causal)
+            caches[pj].append(c)
     if not want_cache:
         return x, None
-    return x, {pj: {n: torch.stack([c[n] for c in cs]) for n in ("k", "v")}
+    return x, {pj: {n: torch.stack([c[n] for c in cs]) for n in cs[0]}
                for pj, cs in caches.items()}
 
 
 def _pos_step(p, cfg, pos: PosPlan, x, cache, position):
-    _check_ported(pos)
+    if pos.mixer == "rwkv":
+        return _rwkv(p, cfg, x, cache, False)[0]
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    y, _ = L.attn_step(p["attn"], cfg, h, cache, position, window=pos.window)
+    if pos.mixer == "attn":
+        y, _ = L.attn_step(p["attn"], cfg, h,
+                           {"k": cache["k"], "v": cache["v"]}, position,
+                           window=pos.window)
+    else:
+        y, _ = M.mamba_step(p["mamba"], cfg, h, _mamba_views(cache))
     if cfg.parallel_block:
         return x + y + _mlp_step(p["ffn"], x.dtype, h)
-    return _ffn_step_tail(p, cfg, pos, x + y)
+    x = x + y
+    if pos.cross:
+        hc = rms_norm(x, p["cross_norm"], cfg.norm_eps)
+        yc, _ = L.cross_attn_step(p["cross"], cfg, hc,
+                                  {"k": cache["ck"], "v": cache["cv"]})
+        x = x + yc
+    return _ffn_step_tail(p, cfg, pos, x)
 
 
 def _group_cache(cache, pj: str, g: int) -> Dict[str, torch.Tensor]:
-    """Group g's {"k","v"} views of a dense cache position."""
-    return {n: cache[pj][n][g] for n in ("k", "v")}
+    """Group g's views of every leaf of a dense cache position."""
+    return {n: a[g] for n, a in cache[pj].items()}
 
 
 def forward_step(params, cfg, x, cache, position
@@ -268,13 +349,27 @@ def forward_step(params, cfg, x, cache, position
 
 def _pos_extend(p, cfg, pos: PosPlan, x, cache, start):
     """One layer position over a chunk against a linear cache; a sliding
-    window is a mask here (the engine's buffers hold its max context)."""
-    _check_ported(pos)
+    window is a mask here (the engine's buffers hold its max context).
+    Recurrent positions resume from their state, cross-attention attends
+    the fixed cross KV."""
+    if pos.mixer == "rwkv":
+        return _rwkv(p, cfg, x, cache, True)[0]
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    y, _ = L.attn_extend(p["attn"], cfg, h, cache, start, window=pos.window)
+    if pos.mixer == "attn":
+        y, _ = L.attn_extend(p["attn"], cfg, h,
+                             {"k": cache["k"], "v": cache["v"]}, start,
+                             window=pos.window)
+    else:
+        y, _ = M.mamba_full(p["mamba"], cfg, h, cache=_mamba_views(cache))
     if cfg.parallel_block:
         return x + y + L.mlp_full(p["ffn"], cfg, h)
-    return _ffn_extend_tail(p, cfg, pos, x + y)
+    x = x + y
+    if pos.cross:
+        hc = rms_norm(x, p["cross_norm"], cfg.norm_eps)
+        yc, _ = L.cross_attn_extend(p["cross"], cfg, hc,
+                                    {"k": cache["ck"], "v": cache["cv"]})
+        x = x + yc
+    return _ffn_extend_tail(p, cfg, pos, x)
 
 
 def forward_extend(params, cfg, x, cache, start
@@ -289,6 +384,24 @@ def forward_extend(params, cfg, x, cache, start
             x = _pos_extend(_group(params[f"p{j}"], g), cfg, pos, x,
                             _group_cache(cache, f"p{j}", g), start)
     return x, cache
+
+
+def seed_cross_cache(params, cfg, kv_src, cache) -> Pytree:
+    """Project ``kv_src`` [B, Skv, d] through every cross-attention
+    position's wk / wv into the cache's ck / cv, in place (a VLM
+    request's admission: the vision tokens arrive once, before its text
+    chunks). Returns the cache."""
+    for j, pos in enumerate(layer_plan(cfg)):
+        if not pos.cross:
+            continue
+        c = cache[f"p{j}"]
+        for g in range(cfg.n_groups):
+            p = _group(params[f"p{j}"], g)["cross"]
+            c["ck"][g].copy_(torch.einsum("...d,dhk->...hk", kv_src,
+                                          p["wk"]))
+            c["cv"][g].copy_(torch.einsum("...d,dhk->...hk", kv_src,
+                                          p["wv"]))
+    return cache
 
 
 # ---------------------------------------------------------------------

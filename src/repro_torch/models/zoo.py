@@ -1,16 +1,21 @@
 """Model zoo API of the port: ``build(cfg)`` -> a ``ModelAPI`` with the
 dense and paged serving entry points (counterpart of the JAX package's
-``models/zoo.py``). Decoder stacks of attention mixers with dense
-(SwiGLU) or MoE FFNs are ported, with or without a sliding window; a
-windowed stack has no paged entry points (None, as in the reference: the
-page pool holds no ring buffer). Encoder-decoder and recurrent stacks
-raise ``NotImplementedError``. Training (``loss``) is not ported.
+``models/zoo.py``) for every config of the zoo. Decoder stacks (dense,
+MoE, sliding-window, RWKV, the mamba / attention hybrid, the VLM with
+cross-attention) have prefill, decode and extend; only attention-only
+stacks without a window have the paged entry points (None otherwise, as
+in the reference: the page pool holds no ring buffer and no recurrent
+state). The encoder-decoder (whisper) has prefill and decode only.
+Training (``loss``) is not ported.
 
 Batch dicts hold int32 tensors on the model's device (``start``/``pos``
-of the dense entries may also be ints):
-  prefill:      {"tokens": [B, S]}
+of the dense entries may also be ints); "vision" [B, n_vision_tokens, d]
+(VLM) and "frames" [B, S_enc, d] (encoder-decoder) are float tensors in
+the model's dtype:
+  prefill:      {"tokens": [B, S]} (+ "vision" | "frames")
   decode:       {"tokens": [B], "pos": int | [B]}
-  extend:       {"tokens": [B, C], "start": int | [B]}
+  extend:       {"tokens": [B, C], "start": int | [B]} (+ "vision": seeds
+                the cross KV before the chunk, ``seed_cross_cache``)
   decode_paged: {"tokens": [B], "pos": [B], "page_table": [B, P]}
   extend_paged: {"tokens": [B, C], "start": [B], "page_table": [B, P]}
   mixed_paged:  {"chunk_tokens": [Lc, C], "chunk_start": [Lc],
@@ -36,10 +41,12 @@ The step still makes one call, which loops over the shards inside.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .. import bridge
 from ..configs.base import ModelConfig
@@ -57,8 +64,9 @@ class ModelAPI:
     cfg: ModelConfig
     prefill: Entry
     decode: Entry
-    extend: Entry
-    # (batch, seq) -> {"p{j}": {"k","v": CacheSpec}}
+    # None for an encoder-decoder stack, as in the reference
+    extend: Optional[Entry]
+    # (batch, seq) -> {"p{j}": {leaf: CacheSpec}}
     cache_specs: Callable[[int, int], Pytree]
     # the paged entry points: None when the stack is not paged-servable
     # (transformer.paged_servable); paged_cache_specs(n_pages, page_size,
@@ -144,6 +152,7 @@ def _build_decoder(cfg: ModelConfig) -> ModelAPI:
     def prefill(params, batch: Dict, *, attn_impl: str = "auto"):
         h, cache = T.forward_full(params["stack"], cfg,
                                   embed(params, batch["tokens"]),
+                                  kv_src=batch.get("vision"),
                                   want_cache=True, attn_impl=attn_impl)
         return final(params, h[:, -1]), cache
 
@@ -154,6 +163,9 @@ def _build_decoder(cfg: ModelConfig) -> ModelAPI:
         return final(params, h), cache
 
     def extend(params, cache, batch: Dict):
+        if "vision" in batch:       # a VLM's admission: cross KV once
+            cache = T.seed_cross_cache(params["stack"], cfg,
+                                       batch["vision"], cache)
         h, cache = T.forward_extend(params["stack"], cfg,
                                     embed(params, batch["tokens"]), cache,
                                     batch["start"])
@@ -241,11 +253,71 @@ def _build_decoder(cfg: ModelConfig) -> ModelAPI:
         mixed_paged_spec=mixed_paged_spec if paged else None)
 
 
+def encdec_configs(cfg: ModelConfig) -> Tuple[ModelConfig, ModelConfig]:
+    """The encoder's config (a plain non-causal dense stack of
+    ``n_encoder_layers``) and the decoder's (cross-attention on every
+    layer) of an encoder-decoder config."""
+    enc = dataclasses.replace(cfg, encoder_decoder=False,
+                              n_layers=cfg.n_encoder_layers,
+                              cross_attn_period=0)
+    dec = dataclasses.replace(cfg, encoder_decoder=False,
+                              cross_attn_period=1, cross_attn_offset=0)
+    return enc, dec
+
+
+def _build_encdec(cfg: ModelConfig) -> ModelAPI:
+    """Whisper: frames arrive embedded ([B, S_enc, d]); the encoder runs
+    them once at prefill, and every decoder layer cross-attends its
+    states. No chunk extension and no paged entries (None, as in the
+    reference)."""
+    enc_cfg, dec_cfg = encdec_configs(cfg)
+
+    def final(params, h):
+        h = rms_norm(h, params["embed"]["final_norm"], cfg.norm_eps)
+        return top1_logits(h, L.head_matrix(params["embed"], cfg))
+
+    def encode(params, frames, attn_impl="auto"):
+        h, _ = T.forward_full(params["encoder"], enc_cfg, frames,
+                              causal=False, attn_impl=attn_impl)
+        return rms_norm(h, params["enc_norm"], cfg.norm_eps)
+
+    def prefill(params, batch: Dict, *, attn_impl: str = "auto"):
+        """Encode the frames and prefill the decoder prompt; the self-KV
+        is padded to max_target_len so decode steps can extend it."""
+        enc = encode(params, batch["frames"], attn_impl)
+        x = L.embed_tokens(params["embed"], cfg, batch["tokens"])
+        h, cache = T.forward_full(params["decoder"], dec_cfg, x, kv_src=enc,
+                                  want_cache=True, attn_impl=attn_impl)
+        pad = cfg.max_target_len - batch["tokens"].shape[1]
+        if pad > 0:
+            cache = {pj: {n: (F.pad(a, (0, 0, 0, 0, 0, pad))
+                              if n in ("k", "v") else a)
+                          for n, a in c.items()}
+                     for pj, c in cache.items()}
+        return final(params, h[:, -1]), cache
+
+    def decode(params, cache, batch: Dict):
+        x = L.embed_tokens(params["embed"], cfg, batch["tokens"])
+        h, cache = T.forward_step(params["decoder"], dec_cfg, x, cache,
+                                  batch["pos"])
+        return final(params, h), cache
+
+    def cache_specs(batch: int, seq: int) -> Pytree:
+        """``seq`` is the ENCODER length; the decoder's self-KV holds
+        max_target_len positions."""
+        out = {}
+        for pj, c in T.cache_specs(dec_cfg, batch,
+                                   cfg.max_target_len).items():
+            c = dict(c)
+            for n in ("ck", "cv"):
+                c[n] = T.CacheSpec((c[n].shape[0], batch, seq,
+                                    cfg.n_kv_heads, cfg.head_dim),
+                                   c[n].dtype)
+            out[pj] = c
+        return out
+
+    return ModelAPI(cfg, prefill, decode, None, cache_specs)
+
+
 def build(cfg: ModelConfig) -> ModelAPI:
-    if cfg.encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder stacks are "
-                                  "not ported yet")
-    if any(p.mixer != "attn" or p.cross for p in T.layer_plan(cfg)):
-        raise NotImplementedError(f"{cfg.name}: recurrent and cross-"
-                                  "attention positions are not ported yet")
-    return _build_decoder(cfg)
+    return _build_encdec(cfg) if cfg.encoder_decoder else _build_decoder(cfg)

@@ -21,7 +21,18 @@ package's ``serving/engine.py``). Two data planes share the scheduling:
     paged plane exists to avoid. A split leaves each request a view of
     the batch cache; only a later concatenation (a copy) or the request's
     own chunks ever write, so no write reaches another request's cache.
-    Recurrent stacks and their snapshot reuse are not ported.
+    Recurrent and hybrid stacks (RWKV, jamba: ``has_recurrent``) reuse at
+    SNAPSHOT granularity: a prefill chunk stops at prompt_len - 1, where
+    the whole cache image (recurrent states, the first prompt_len - 1
+    positions of every attention KV buffer, cross KV) is cloned into
+    ``state_store`` (``_snapshot_full_cache``); a later prompt that
+    starts with a stored key gets a copy of its image
+    (``_seed_snapshot``) and prefills only the rest. Copies both ways:
+    the live caches are written in place, and a stored image aliased
+    into one would change under it. As in the reference, nothing evicts
+    ``state_store``. The VLM's cross KV stays zero (the engine passes no
+    vision tokens, as the reference's). An encoder-decoder stack has no
+    chunk extension, so no engine serves it (ValueError).
 
 With ``host_capacity_tokens > 0`` the pool grows a second tier:
 eviction DEMOTES node KV to host RAM (``serving/kv_offload.py``) instead
@@ -89,6 +100,7 @@ from ..core.request import Request
 from ..launch import sharding as shard_lib
 from ..launch.mesh import make_serve_mesh
 from ..models import zoo
+from ..models.transformer import layer_plan
 from .batch import ForwardBatch, ModelWorkerBatch, bucket, lower_arrays
 from .faults import CircuitBreaker, InstanceCrashed
 from .kv_cache import PagedKVPool
@@ -174,14 +186,14 @@ def _cache_zeros(specs: Pytree, device) -> Pytree:
 
 
 def _cache_concat(caches: List[Pytree]) -> Pytree:
-    """The batch cache: the requests' [G, 1, S, KH, D] leaves joined on
-    the batch axis (a copy)."""
+    """The batch cache: the requests' [G, 1, ...] leaves (k / v, ck / cv,
+    recurrent states) joined on the batch axis (a copy)."""
     return {pj: {n: torch.cat([c[pj][n] for c in caches], dim=1)
                  for n in leaves} for pj, leaves in caches[0].items()}
 
 
 def _cache_index(cache: Pytree, i: int) -> Pytree:
-    """Request i's views [G, 1, S, KH, D] of a batch cache."""
+    """Request i's views [G, 1, ...] of every leaf of a batch cache."""
     return {pj: {n: a[:, i:i + 1] for n, a in c.items()}
             for pj, c in cache.items()}
 
@@ -210,6 +222,12 @@ class Engine:
         # beyond max_context
         self.model_cfg = dataclasses.replace(cfg, sliding_window=0)
         self.api = zoo.build(self.model_cfg)
+        if self.api.extend is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder stack has no "
+                             "chunk extension; no engine serves it")
+        self.has_recurrent = any(
+            p.mixer in ("mamba", "rwkv")
+            for p in layer_plan(self.model_cfg))
         self.paged = (econf.paged if econf.paged is not None
                       else self.api.decode_paged is not None)
         if self.paged and self.api.decode_paged is None:
@@ -377,6 +395,9 @@ class Engine:
             self.econf.page_size)
         # node path key -> {p_j: {"k","v": [G, 1, span, KH, D]}}
         self.kv_store: Dict[PathKey, Pytree] = {}
+        # exact prompt prefix -> whole cache image at its length
+        # (recurrent stacks; never evicted, as in the reference)
+        self.state_store: Dict[Tuple[int, ...], Pytree] = {}
         self._cache_spec = self.api.cache_specs(1, self.econf.max_context)
 
     def _copy_page(self, src: int, dst: int) -> None:
@@ -712,10 +733,14 @@ class Engine:
 
     def _admit_dense(self, r: Request, now: float) -> None:
         """DENSE reference: a fresh linear cache seeded with copies of
-        the matched path's cached KV slabs."""
+        the matched path's cached KV slabs, or (recurrent stacks) of the
+        longest stored snapshot the prompt starts with."""
         cache = _cache_zeros(self._cache_spec, self.device)
         m = self.scheduler.tree.match(r.tokens, now=now)
-        reuse = self._seed_attn_kv(cache, m) if m.matched_len else 0
+        reuse = 0
+        if m.matched_len:
+            reuse = (self._seed_snapshot(cache, r.tokens, m.matched_len)
+                     if self.has_recurrent else self._seed_attn_kv(cache, m))
         reuse = min(reuse, r.prompt_len - 1)
         if self.pool.free_tokens() >= (r.prompt_len - reuse
                                        + r.max_new_tokens):
@@ -723,10 +748,14 @@ class Engine:
             self.pool.append(r.request_id,
                              r.prompt_len - reuse + r.max_new_tokens)
         # the prompt's part moves to the prefix store when
-        # _store_prefix publishes its slabs (credit_stored)
+        # _store_prefix publishes its slabs (credit_stored); a recurrent
+        # stack publishes no slab, its tree nodes stay marked and
+        # eviction refunds them, so only the outputs are its own
         self.scheduler.set_account(
             r.request_id,
-            max(r.prompt_len - r.device_cached_len, 0) + r.max_new_tokens)
+            r.max_new_tokens if self.has_recurrent
+            else max(r.prompt_len - r.device_cached_len, 0)
+            + r.max_new_tokens)
         self.live[r.request_id] = {"cache": cache, "next": None}
         r.prefill_done = reuse
         self.stats["reused_tokens"] += reuse
@@ -755,6 +784,36 @@ class Engine:
                                     off)
                 off += take
         return off
+
+    def _seed_snapshot(self, cache: Pytree, tokens, matched_len: int) -> int:
+        """Recurrent stacks: copy into ``cache`` the image of the longest
+        stored key (of length L <= matched_len) this prompt starts with:
+        whole leaves, and k / v slabs [G, 1, L, KH, D] at [0:L]. Returns
+        L (0 when none)."""
+        best_len, best = 0, None
+        for key, snap in self.state_store.items():
+            L = len(key)
+            if best_len < L <= matched_len and tuple(tokens[:L]) == key:
+                best_len, best = L, snap
+        if best is None:
+            return 0
+        for pj, c in cache.items():
+            for name, arr in best[pj].items():
+                c[name][tuple(slice(0, n) for n in arr.shape)].copy_(arr)
+        return best_len
+
+    def _snapshot_full_cache(self, r: Request, boundary: int) -> None:
+        """Clone the request's cache after ``boundary`` consumed tokens
+        (mid-prefill at prompt_len - 1, so an identical prompt later
+        reuses all but its last token): k / v cut to [0:boundary], every
+        other leaf whole."""
+        key = tuple(r.tokens[:boundary])
+        if key in self.state_store:
+            return
+        self.state_store[key] = {
+            pj: {n: (a[:, :, :boundary] if n in ("k", "v") else a).clone()
+                 for n, a in c.items()}
+            for pj, c in self.live[r.request_id]["cache"].items()}
 
     def _host_restore_chain(self, m, boundary: int, limit: int
                             ) -> Tuple[List[Tuple[PathKey, int, int, int]],
@@ -1036,10 +1095,14 @@ class Engine:
         alias the request's pages (each node's sequence covers the full
         root->node token path, so a later match can fork from the
         deepest covering node); on the dense plane copy each new node's
-        span out of the request's cache into ``kv_store``."""
+        span out of the request's cache into ``kv_store`` (a recurrent
+        stack only inserts the path: its snapshot was taken
+        mid-prefill)."""
         path = self.scheduler.tree.insert(
             r.tokens, instance=self.econf.instance_id, now=now,
             record=False)
+        if not self.paged and self.has_recurrent:
+            return      # its snapshot was taken mid-prefill
         if not self.paged:
             cache = self.live[r.request_id]["cache"]
             off = 0
@@ -1165,7 +1228,8 @@ class Engine:
                     self.stats["aborted"] += 1
                     aborted.append(r)
                     continue
-            self.scheduler.clamp_chunk(item, snapshot_boundary=False)
+            self.scheduler.clamp_chunk(
+                item, snapshot_boundary=self.has_recurrent)
         return aborted
 
     def _run_prefills(self, batch: Batch) -> List[Request]:
@@ -1197,6 +1261,8 @@ class Engine:
                     {"tokens": toks[None], "start": start})
             self.stats["prefilled_tokens"] += chunk
             self.stats["model_dispatches"] += 1
+            if self.has_recurrent and start + chunk == r.prompt_len - 1:
+                self._snapshot_full_cache(r, r.prompt_len - 1)
             if start + chunk >= r.prompt_len:
                 # prefill emits the FIRST generated token
                 tok = int(nxt[0])

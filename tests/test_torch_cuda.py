@@ -314,6 +314,38 @@ def test_decode_kernel_at_the_dense_serve_shapes(card, dtype, B):
                   dtype)
 
 
+# (B, H, KH, S, D, full): the split-K decode's calls on the recurrent,
+# hybrid and cross-attention stacks' paths in chip_smoke.py: the VLM's
+# cross step (every one of its 1600 vision keys valid) and self-attention
+# over a 4096-position cache, jamba's attention positions (its 4096
+# cache), whisper-tiny's cross step (G 1, D 64, 1500 encoder frames) and
+# its self-attention (448 positions, 8 to 16 valid)
+SERVE_SHAPES = [(1, 32, 8, 1600, 128, True), (2, 32, 8, 1600, 128, True),
+                (1, 32, 8, 4096, 128, False), (1, 6, 6, 1500, 64, True),
+                (1, 6, 6, 448, 64, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SERVE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_at_the_cross_and_recurrent_serve_shapes(card, dtype,
+                                                              case):
+    B, H, KH, S, D, full = case
+    rng = np.random.default_rng(S + B)
+    q = _card(rng, dtype, B, H, D)
+    kc, vc = _card(rng, dtype, B, S, KH, D), _card(rng, dtype, B, S, KH, D)
+    lens = (np.full(B, S) if full else
+            rng.integers(8, 17, B) if S == 448 else
+            rng.integers(1800, 2600, B))
+    lens = torch.from_numpy(lens.astype(np.int32)).cuda()
+    n0 = DA.decode_attention.launches
+    got = ops.decode_attention(q, kc, vc, lens)
+    assert DA.decode_attention.launches == n0 + 1
+    _assert_close(got, decode_attention_plain(q, kc.transpose(1, 2),
+                                              vc.transpose(1, 2), lens),
+                  dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,masked", [(1, 1), (2, 0), (8, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -813,27 +845,38 @@ def _dense_stream(vocab):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["smollm-360m", "mistral-7b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "mistral-7b", "rwkv6-7b",
+                                  "jamba-v0.1-52b", "llama-3.2-vision-11b"])
 def test_dense_engine_card_matches_cpu(card, arch):
     """The dense plane (paged=False) on the card against the same engine
-    on the CPU, float32 reduced config: token-identical, the same stats,
-    and on the card the split-K decode kernel once per layer per decode
-    batch."""
+    on the CPU, float32 reduced config (2 layers for the attention-only
+    stacks; jamba keeps its two 8-position groups): token-identical, the
+    same stats, and on the card the split-K decode kernel once per
+    attention position and cross-attention sub-block per decode batch
+    (none for RWKV). A recurrent stack reuses only a stored snapshot (a
+    whole earlier prompt but its last token), so its second wave also
+    repeats the first prompt."""
     import dataclasses
     from repro_torch import bridge
     from repro_torch.configs import ARCHS, reduced
     from repro_torch.core.request import Request
+    from repro_torch.models.transformer import layer_plan
     from repro_torch.serving.engine import Engine, EngineConfig
-    cfg = dataclasses.replace(reduced(ARCHS[arch]), n_layers=2,
-                              dtype="float32")
+    cfg = dataclasses.replace(reduced(ARCHS[arch]), dtype="float32")
+    if cfg.group_size == 1 and not cfg.attention_free:
+        cfg = dataclasses.replace(cfg, n_layers=2)
+    calls = cfg.n_groups * sum((p.mixer == "attn") + p.cross
+                               for p in layer_plan(cfg))
+    prompts = _dense_stream(cfg.vocab_size)
+    if any(p.mixer != "attn" for p in layer_plan(cfg)):
+        prompts.append(prompts[0])
     params = bridge.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     outs, stats = {}, {}
     for dev in ("cpu", "cuda"):
         eng = Engine(cfg, params, EngineConfig(
             max_context=64, chunk_size=16, max_batch_tokens=64,
             capacity_tokens=4096, page_size=16, paged=False), device=dev)
-        reqs = [Request(tokens=p, max_new_tokens=4)
-                for p in _dense_stream(cfg.vocab_size)]
+        reqs = [Request(tokens=p, max_new_tokens=4) for p in prompts]
         n0 = DA.decode_attention.launches
         now, done = 0.0, []
         for wave in (reqs[:2], reqs[2:]):
@@ -844,8 +887,7 @@ def test_dense_engine_card_matches_cpu(card, arch):
                 done += eng.step(now)
                 now += 0.01
         launched = DA.decode_attention.launches - n0
-        want = cfg.n_layers * eng.stats["decode_batches"] \
-            if dev == "cuda" else 0
+        want = calls * eng.stats["decode_batches"] if dev == "cuda" else 0
         assert launched == want and eng.stats["decode_batches"] > 0
         outs[dev] = [list(r.output_tokens) for r in reqs]
         stats[dev] = dict(eng.stats)

@@ -259,8 +259,12 @@ def test_build_admits_windowed_stacks_without_paged_entries():
     assert tzoo.build(TARCHS["mixtral-8x22b"]).decode_paged is None
     for arch in ("rwkv6-7b", "jamba-v0.1-52b", "whisper-tiny",
                  "llama-3.2-vision-11b"):
-        with pytest.raises(NotImplementedError):
-            tzoo.build(TARCHS[arch])
+        api = tzoo.build(TARCHS[arch])
+        assert api.prefill and api.decode, arch
+        assert (api.extend is None) == (arch == "whisper-tiny"), arch
+        for name in ("decode_paged", "extend_paged", "paged_cache_specs",
+                     "mixed_paged", "mixed_paged_spec"):
+            assert getattr(api, name) is None, (arch, name)
 
 
 # ---------------------------------------------------------------------------

@@ -137,9 +137,18 @@ def test_mixed_paged_spec_matches_jax(models):
 
 
 def test_build_raises_for_unported_configs():
+    """Every config builds now: the recurrent and encoder-decoder stacks
+    get the dense entries and no paged ones (None, as the reference's
+    build gives them), and whisper no chunk extension."""
     for arch in ("rwkv6-7b", "whisper-tiny"):
-        with pytest.raises(NotImplementedError):
-            tzoo.build(TARCHS[arch])
+        api, japi = tzoo.build(TARCHS[arch]), jzoo.build(ARCHS[arch])
+        assert api.prefill and api.decode
+        for name in ("extend", "decode_paged", "extend_paged",
+                     "paged_cache_specs", "mixed_paged", "mixed_paged_spec"):
+            assert (getattr(api, name) is None) \
+                == (getattr(japi, name) is None), (arch, name)
+        assert (api.extend is None) == (arch == "whisper-tiny")
+        assert api.decode_paged is None
 
 
 def test_bridge_round_trip_keeps_the_moe_router_float32():
