@@ -104,7 +104,22 @@ From the root of a checkout. It
    full-width float32 layer of mamba and of RWKV-6, chunk form against
    chained steps; and (after the MoE reference phase) the reduced
    float32 rwkv6, jamba and VLM dense engines on the snapshot stream,
-   card == CPU.
+   card == CPU;
+13. (right after the recurrent phase) training: smollm-360m at full width
+   and depth (bf16, random weights from seed 0), 12 steps of the port's
+   ``make_train_step`` at ``TrainConfig()`` defaults (remat on) on
+   batch 8 x seq 1024 of the synthetic stream: each step's loss, grad
+   norm and lr, the step wall, tokens/s, the model-FLOP share, peak
+   memory against the state's bytes and one profiled step (launches,
+   device busy share, device time by kernel kind); 12 steps on one
+   fixed batch at the reference's overfit settings, whose last loss
+   must be below its first; one step each of grad_accum 2, int8 error
+   feedback and int8 moments (moment bytes); ``launch.train.main`` with
+   a checkpoint, its restored state bit-equal to the saved one, a step
+   from each within the bf16 bound, and a second call that resumes;
+   and one float32 step of six reduced families (smollm, mixtral,
+   rwkv6, jamba, the VLM with vision, whisper with frames) card == CPU.
+   Training runs no hand-written kernel, as in the JAX package.
 
 Any failed check exits non-zero. The last line is the JSON result.
 Exits non-zero with no result when no CUDA device is present or when
@@ -2805,6 +2820,378 @@ def rec_reference_phase(torch, configs, bridge, Engine, EngineConfig,
                              Request)
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 12
+TRAIN_WIDTH = dict(n_layers=32, d_model=960, n_heads=15, n_kv_heads=5,
+                   vocab_size=49152, tie_embeddings=True, dtype="bfloat16")
+TRAIN_SWITCHES = (dict(grad_accum=2), dict(compress_grads=True),
+                  dict(quant_moments=True))
+TRAIN_CLI = ["--log-every", "1"]          # the reference's defaults else
+TRAIN_CHECK_ARCHS = ("smollm-360m", "mixtral-8x22b", "rwkv6-7b",
+                     "jamba-v0.1-52b", "llama-3.2-vision-11b",
+                     "whisper-tiny")
+TRAIN_RTOL = 1e-4       # card vs CPU loss and grad norm, float32
+TRAIN_FAN_IN_GAIN = 0.3
+BF16_REL = 2 ** -7      # one bfloat16 ulp, relative
+# device kernels of a profiled train step by kind (first match wins):
+# float32 GEMMs are the naive attention's score and value products
+TRAIN_KERNEL_KINDS = (
+    ("f32 gemm", ("f32f32",)),
+    ("gemm", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
+    ("softmax", ("softmax",)),
+    ("reduce", ("reduce",)),
+    ("copy / cat / index", ("copy", "Cat", "index", "gather", "scatter",
+                            "embedding")),
+    ("elementwise", ("elementwise",)))
+
+
+def sync(torch, dev):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def flat_leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(flat_leaves(tree[k], prefix + (k,)))
+        return out
+    return {prefix: tree}
+
+
+def spread(xs):
+    xs = sorted(xs)
+    return dict(median=xs[len(xs) // 2], min=xs[0], max=xs[-1])
+
+
+def profile_train_step(torch, step, state, batch):
+    """One more step under torch.profiler (device activity only): kernel
+    launches, device busy ms and busy share of the step's wall, the
+    costliest kernels. Instrumentation only."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = device_kernels(torch, prof)
+    busy_ms = sum(k[0] for k in kernels) / 1e3
+    if busy_ms == 0.0:
+        return "not measured (the profiler recorded no device time)"
+    kinds = {}
+    for us, calls, name in kernels:
+        kind = next((kd for kd, keys in TRAIN_KERNEL_KINDS
+                     if any(x in name for x in keys)), "other")
+        ms, n = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (ms + us / 1e3, n + calls)
+    return dict(wall_ms=wall * 1e3, launches=sum(k[1] for k in kernels),
+                device_busy_ms=busy_ms,
+                device_busy_share=busy_ms / (wall * 1e3),
+                by_kind={k: dict(ms=ms, calls=n)
+                         for k, (ms, n) in sorted(kinds.items(),
+                                                  key=lambda x: -x[1][0])},
+                top=[dict(kernel=k[2][:70], ms=k[0] / 1e3, calls=k[1])
+                     for k in kernels[:8]])
+
+
+def train_steps(torch, T, api, params, tc, batches, dev, label):
+    """``len(batches)`` steps of ``make_train_step(api, tc)`` from fresh
+    state over ``params``: per-step [loss, grad norm, lr] and walls (the
+    host clock around each step, synchronized); every loss checked
+    finite. Returns (rows, walls, final state, step fn)."""
+    step = T.make_train_step(api, tc)
+    state = T.init_state(params, tc)
+    rows, walls = [], []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        sync(torch, dev)
+        walls.append(time.perf_counter() - t0)
+        rows.append([float(m[k]) for k in ("loss", "grad_norm", "lr")])
+        print(f"train: {label} step {i + 1:2d} loss={rows[-1][0]:.6f} "
+              f"gnorm={rows[-1][1]:.6g} lr={rows[-1][2]:.3e} "
+              f"wall={walls[-1] * 1e3:.1f} ms")
+    losses = [r[0] for r in rows]
+    check(all(math.isfinite(x) for x in losses),
+          f"train {label}: a loss is not finite: {losses}")
+    return rows, walls, state, step
+
+
+def train_full_width(torch, T, tcli, bridge, api, dev, card,
+                     batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS):
+    """From random weights (``train_params``, seed 0): ``steps`` steps at
+    ``TrainConfig()``
+    defaults (remat on) on ``synthetic_batches(seed=0)``, each step's
+    loss, grad norm and lr, the wall of steps 3.. (median, spread),
+    tokens/s, the model-FLOP share (6 N T / (wall x 989e12)), peak memory
+    against the state's 16 bytes a parameter and one profiled step;
+    then ``steps`` steps on the stream's first batch repeated, at the
+    reference's single-batch overfit settings (lr 3e-3, warmup 5,
+    tests/test_train_substrate.py): the last loss must be below the
+    first (at the defaults' warmup the lr stays under 3.3e-5 for 12
+    steps, too little to move a random 32-layer stack's loss). Returns
+    the initial parameters and the fixed batch."""
+    cfg = api.cfg
+    params = train_params(torch, bridge, cfg, 0, dev)
+    data = tcli.synthetic_batches(cfg.vocab_size, batch, seq, seed=0,
+                                  device=dev)
+    batches = [next(data) for _ in range(steps)]
+    sync(torch, dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    rows, walls, state, step = train_steps(
+        torch, T, api, params, T.TrainConfig(), batches, dev, "stream")
+    n = api.n_active_params
+    tokens = batch * seq
+    wall = spread(walls[2:])
+    out = dict(arch=cfg.name, layers=cfg.n_layers, batch=batch, seq=seq,
+               steps=steps, params=n, step_wall_s=wall,
+               first_step_s=walls[0],
+               tokens_per_s=tokens / wall["median"],
+               model_flop_share=6 * n * tokens / (wall["median"]
+                                                  * BF16_FLOPS),
+               card=card)
+    if dev == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["state_gib_16_bytes_a_param"] = 16 * n / 2 ** 30
+        out["profile"] = profile_train_step(torch, step, state, batches[-1])
+    print("train: full width " + json.dumps(out))
+    del state
+    fixed = T.TrainConfig(adamw=T.AdamWConfig(lr=3e-3), warmup_steps=5,
+                          total_steps=200)
+    rows, _, state, _ = train_steps(torch, T, api, params, fixed,
+                                    [batches[0]] * steps, dev, "fixed")
+    losses = [r[0] for r in rows]
+    check(losses[-1] < losses[0],
+          f"train: the fixed batch's loss did not fall: {losses}")
+    out["fixed_batch_losses"] = losses
+    del state
+    return params, batches[0]
+
+
+def train_switches(torch, T, api, params, b, dev):
+    """One step each of grad_accum=2, compress_grads and quant_moments
+    from the same weights and batch: a finite loss, and the optimizer
+    state's moment bytes (float32 against int8 with a float32 scale a
+    row)."""
+    out = {}
+    for opts in TRAIN_SWITCHES:
+        tc = T.TrainConfig(**opts)
+        state = T.init_state(params, tc)
+        t0 = time.perf_counter()
+        state, m = T.make_train_step(api, tc)(state, b)
+        sync(torch, dev)
+        name = ",".join(opts)
+        loss = float(m["loss"])
+        check(math.isfinite(loss), f"train {name}: loss {loss}")
+        out[name] = dict(loss=loss, grad_norm=float(m["grad_norm"]),
+                         wall_s=time.perf_counter() - t0,
+                         moment_bytes=tree_bytes(state.opt["m"])
+                         + tree_bytes(state.opt["v"]),
+                         state_bytes=tree_bytes(state.as_dict()))
+        del state
+    print("train: switches " + json.dumps(out))
+    return out
+
+
+def train_cli(torch, T, tcli, ckpt, configs, zoo, dev, extra=()):
+    """``launch.train.main`` in-process: 3 steps with a checkpoint, every
+    restored leaf bit-equal to the returned state, one step from the
+    restored state against one from the returned state (loss and grad
+    norm within one bf16 ulp relative, parameters within one bf16 ulp
+    plus 2.1 lr: the embedding's backward accumulates with atomics on
+    the card, so the grads need not be bit-equal), then
+    a second call to step 5 that resumes from step 3."""
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    args = TRAIN_CLI + ["--device", dev] + list(extra)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        for steps in (3, 5):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                state = tcli.main(args + ["--steps", str(steps),
+                                          "--ckpt-dir", d])
+            out[f"main_to_{steps}_s"] = time.perf_counter() - t0
+            text = buf.getvalue()
+            print("".join(f"train: cli: {line}\n"
+                          for line in text.splitlines()), end="")
+            check(int(state.step) == steps, f"train cli: step {state.step}")
+            if steps == 5:
+                check("resumed from step 3" in text,
+                      "train cli: the second call did not resume")
+                break
+            t0 = time.perf_counter()
+            restored = T.TrainState.from_dict(
+                ckpt.restore_checkpoint(d, step=3, device=dev))
+            out["restore_s"] = time.perf_counter() - t0
+            a, r = (flat_leaves(s.as_dict()) for s in (state, restored))
+            check(set(a) == set(r), "train cli: restored paths differ")
+            for k in a:
+                check(a[k].dtype == r[k].dtype and torch.equal(a[k], r[k]),
+                      f"train cli: restored leaf {k} differs")
+            out["restored_leaves"] = len(a)
+            out["checkpoint_bytes"] = tree_bytes(state.as_dict())
+            pa = tcli.parse_args(args + ["--steps", "3"])
+            cfg = configs.get_config(pa.arch)
+            if pa.reduced:
+                cfg = configs.reduced(cfg)
+            tc = T.TrainConfig(adamw=T.AdamWConfig(lr=pa.lr),
+                               warmup_steps=max(pa.steps // 20, 1),
+                               total_steps=pa.steps)
+            step = T.make_train_step(zoo.build(cfg), tc)
+            data = tcli.synthetic_batches(cfg.vocab_size, pa.batch, pa.seq,
+                                          pa.seed, device=dev)
+            for _ in range(4):
+                b = next(data)
+            sa, ma = step(state, b)
+            sr, mr = step(restored, b)
+            lr = float(ma["lr"])
+            diff = {k: abs(float(ma[k]) - float(mr[k])) / float(ma[k])
+                    for k in ("loss", "grad_norm")}
+            check(all(v <= BF16_REL for v in diff.values()),
+                  f"train cli: the resumed step's {diff} relative")
+            use, differ = 0.0, 0
+            pa_, pr_ = flat_leaves(sa.params), flat_leaves(sr.params)
+            for k in pa_:
+                x, y = pa_[k].float(), pr_[k].float()
+                bound = BF16_REL * x.abs() + 2.1 * lr
+                use = max(use, ((x - y).abs() / bound).max().item())
+                differ += int((x != y).sum())
+            check(use <= 1.0, f"train cli: resumed step {use:.3g} x the "
+                  "bf16 bound")
+            out["resumed_step"] = dict(rel=diff, params_differ=differ,
+                                       share_of_bound=use)
+            del state, restored, sa, sr
+    print("train: cli " + json.dumps(out))
+    return out
+
+
+def train_params(torch, bridge, cfg, seed, dev="cpu",
+                 gain=TRAIN_FAN_IN_GAIN):
+    """Random parameters on ``dev`` from a ``torch.Generator`` (seed),
+    each leaf in its dtype, in the specs' shapes and init kinds with the
+    "fan_in" leaves at ``gain`` of the reference's 1 / sqrt(shape[-2]).
+    At the full scale the stacks are too ill-conditioned to train or to
+    compare: a reduced stack's attention scores reach ~200 and float32
+    rounding (other on the card than on the CPU) moves its grads by up
+    to 3e-2 of a leaf's max (tests/test_torch_loss.py), and full-depth
+    smollm-360m's gradient norm is ~1e17, so the clipped grads (norm 1)
+    fall far below AdamW's eps and no step moves the loss."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        dt = getattr(torch, t.dtype or cfg.dtype)
+        if t.init in ("zeros", "ones"):
+            return torch.full(t.shape, float(t.init == "ones"), dtype=dt,
+                              device=dev)
+        scale = (gain / math.sqrt(t.shape[-2]) if t.init == "fan_in"
+                 else t.scale)
+        return (scale * torch.randn(t.shape, generator=g,
+                                    device=dev)).to(dt)
+    return walk(bridge.param_specs(cfg))
+
+
+def train_card_vs_cpu(torch, T, bridge, configs, zoo,
+                      archs=TRAIN_CHECK_ARCHS):
+    """One ``make_train_step`` step of each reduced float32 family on the
+    card and on the CPU, same parameters and batch ("vision" for the
+    VLM, "frames" for whisper), lr 3e-3 from step 0: loss and grad norm
+    within TRAIN_RTOL, every updated parameter within 2.1 lr (an Adam
+    step on a gradient near 0 is +-lr either way), and the count of
+    entries whose update has another sign."""
+    import dataclasses
+    out = {}
+    for arch in archs:
+        cfg = dataclasses.replace(configs.reduced(configs.ARCHS[arch]),
+                                  dtype="float32")
+        params = train_params(torch, bridge, cfg, 0)
+        g = torch.Generator().manual_seed(1)
+        S = cfg.max_target_len if cfg.encoder_decoder else 32
+        toks = torch.randint(0, cfg.vocab_size, (2, S + 1), generator=g,
+                             dtype=torch.int32)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.cross_attn_period and not cfg.encoder_decoder:
+            batch["vision"] = torch.randn(2, cfg.n_vision_tokens,
+                                          cfg.d_model, generator=g)
+        if cfg.encoder_decoder:
+            batch["frames"] = torch.randn(2, 20, cfg.d_model, generator=g)
+        tc = T.TrainConfig(adamw=T.AdamWConfig(lr=3e-3), warmup_steps=0,
+                           total_steps=10)
+        step = T.make_train_step(zoo.build(cfg), tc)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            state = T.init_state(bridge.tree_to(params, dev), tc)
+            new, m = step(state, {k: v.to(dev) for k, v in batch.items()})
+            res[dev] = (flat_leaves(new.params), m)
+        (pc, mc), (pg, mg) = res["cpu"], res["cuda"]
+        lr = float(mc["lr"])
+        rel = {k: abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k]))
+               for k in ("loss", "grad_norm")}
+        check(all(v <= TRAIN_RTOL for v in rel.values()),
+              f"train {arch}: card vs CPU {rel}")
+        old = flat_leaves(params)
+        worst, flips = 0.0, 0
+        for k, x in pc.items():
+            y = pg[k].cpu()
+            worst = max(worst, (x - y).abs().max().item())
+            flips += int((torch.sign(x - old[k])
+                          != torch.sign(y - old[k])).sum())
+        check(worst <= 2.1 * lr, f"train {arch}: parameters {worst / lr:.3g}"
+              " lr apart")
+        out[arch] = dict(loss=float(mc["loss"]), rel=rel,
+                         max_param_diff_in_lr=worst / lr,
+                         sign_differing_updates=flips,
+                         params=sum(x.numel() for x in pc.values()))
+    print("train: reduced float32 card == CPU (loss and grad norm within "
+          f"{TRAIN_RTOL}, parameters within 2.1 lr): " + json.dumps(out))
+    return out
+
+
+def train_phase(torch, configs, bridge, zoo, dev="cuda", cfg=None,
+                seq=TRAIN_SEQ, cli_extra=()):
+    """smollm-360m trained at full width and depth (``train_full_width``),
+    each switch at full width (``train_switches``), the train CLI with a
+    checkpoint and a resume (``train_cli``) and, on the card, one step
+    of six reduced float32 families card == CPU
+    (``train_card_vs_cpu``). Rehearses on the CPU with ``dev="cpu"``, a
+    reduced ``cfg`` and ``cli_extra=["--reduced"]``."""
+    from repro_torch import train as T
+    from repro_torch.launch import train as tcli
+    from repro_torch.train import checkpoint as ckpt
+    if cfg is None:
+        cfg = configs.get_config("smollm-360m")
+        check(all(getattr(cfg, k) == v for k, v in TRAIN_WIDTH.items()),
+              "smollm-360m is not at full width")
+    card = card_line() if dev == "cuda" else "cpu"
+    api = zoo.build(cfg)
+    params, b = train_full_width(torch, T, tcli, bridge, api, dev, card,
+                                 seq=seq)
+    train_switches(torch, T, api, params, b, dev)
+    del params, b
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    train_cli(torch, T, tcli, ckpt, configs, zoo, dev, cli_extra)
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        train_card_vs_cpu(torch, T, bridge, configs, zoo)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2882,6 +3269,11 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"recurrent: phase took {time.perf_counter() - t0:.1f}s; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
+          "allocated after it")
+    t0 = time.perf_counter()
+    train_phase(torch, configs, bridge, zoo)
+    print(f"train: phase took {time.perf_counter() - t0:.1f}s; "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
           "allocated after it")
     reference_phase(torch, configs, bridge, zoo, Engine, EngineConfig,

@@ -45,6 +45,12 @@ class Mesh:
         return len(self.devices)
 
 
+def data_axes(mesh: Mesh) -> Tuple[str, ...]:
+    """The data-parallel axes (the batch dim's sharding): "pod" and
+    "data" where the mesh has them."""
+    return tuple(a for a in ("pod", "data") if a in mesh.shape)
+
+
 def axis_size(mesh: Mesh, axes: Union[str, Sequence[str]]) -> int:
     if isinstance(axes, str):
         axes = (axes,)

@@ -14,8 +14,12 @@ name, a tuple of names, or None), with the entries the reference's
 functions give (``Policy.pspec`` drops trailing Nones, the pool and span
 specs keep one entry per dim). The rules for "experts", "expert_ff",
 "expert_in", "halfexpert" and "expert_ff_fsdp" are the reference's and
-lay out the MoE leaves; "inner" is kept for the Mamba stacks, not
-ported yet.
+lay out the MoE leaves; "inner" lays out the Mamba leaves.
+
+``train_policy`` and ``dp_spec`` give the training state's and the
+batch's specs on a ("data", "model") mesh, as the reference's do; the
+port trains on one device, and sharded training over a mesh is not
+ported.
 
 On a serve submesh ("data", "model") = (1, tp) only the "model" axis
 splits anything: ``shard_params`` cuts every leaf along the dims whose
@@ -34,7 +38,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from ..bridge import Spec
-from .mesh import Mesh, axis_size
+from .mesh import Mesh, axis_size, data_axes
 
 Pytree = Any
 AxisPref = Union[str, Tuple[str, ...]]
@@ -69,6 +73,39 @@ class Policy:
         while out and out[-1] is None:
             out.pop()
         return tuple(out)
+
+
+def train_policy(mesh: Mesh) -> Policy:
+    """TP over "model" (heads, ff, vocab, experts, inner) and FSDP over
+    "data" on the embed dim; an expert's ff dim takes "model" and "data"
+    jointly, never its input dim (a data-sharded contraction dim would
+    turn the expert products into float32 partial-sum all-reduces).
+    The port trains on one device; the specs say how a mesh would lay
+    the training state out."""
+    return Policy(rules={
+        "vocab": ("model",),
+        "heads": ("model",),
+        "kv_heads": ("model",),
+        "ff": ("model",),
+        "experts": ("expert", "model"),
+        "expert_ff": (("model", "data"), ("model",), ("data",)),
+        "expert_in": (),
+        "halfexpert": ("model",),
+        "expert_ff_fsdp": ("data",),
+        "inner": ("model",),
+        "embed": ("data",),
+    })
+
+
+def dp_spec(mesh: Mesh, batch: int
+            ) -> Optional[Union[str, Tuple[str, ...]]]:
+    """Mesh axes of a batch dim: the data-parallel axes when they divide
+    ``batch``, else "data", else None (replicated)."""
+    for axes in (data_axes(mesh), ("data",)):
+        if axes and all(a in mesh.shape for a in axes) \
+                and batch % axis_size(mesh, axes) == 0:
+            return axes[0] if len(axes) == 1 else tuple(axes)
+    return None
 
 
 def serve_policy(mesh: Mesh, param_bytes: int,

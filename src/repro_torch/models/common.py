@@ -74,3 +74,39 @@ def top1_logits(hidden_last: torch.Tensor,
     """Greedy next-token from last-position hidden states: [B, d] -> [B]."""
     logits = (hidden_last @ w_out).float()
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def chunked_ce_loss(hidden: torch.Tensor, w_out: torch.Tensor,
+                    labels: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None,
+                    chunk: int = 512) -> torch.Tensor:
+    """Causal-LM loss without materializing [B, S, V] logits at once:
+    hidden [B, S, d], w_out [d, V], labels [B, S] (next-token ids,
+    already shifted), mask [B, S] (1 counts a position) or None. The
+    sequence runs in n = max(S // chunk, 1) chunks of S // n positions,
+    as the reference's scan: a chunk's logits [B, S // n, V] are float32,
+    its NLL sums and mask counts are added chunk by chunk, and the loss
+    is their ratio (count floored at 1). The gold logit is a gather (the
+    reference's iota-mask reduce selects the same value; it exists only
+    for a vocab-sharded program)."""
+    B, S, d = hidden.shape
+    n = max(S // chunk, 1)
+    chunk = S // n
+    if n * chunk != S:
+        raise ValueError(f"sequence {S} does not split into {n} chunks")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=hidden.device)
+    mask = mask.float()
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        logits = (hidden[:, sl] @ w_out).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels[:, sl, None].long())[..., 0]
+        mc = mask[:, sl]
+        tot = tot + ((lse - gold) * mc).sum()
+        cnt = cnt + mc.sum()
+    return tot / torch.clamp(cnt, min=1.0)

@@ -34,6 +34,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from . import mamba as M
@@ -281,19 +282,32 @@ def _pos_full(p, cfg, pos: PosPlan, x, kv_src, want_cache: bool,
 
 
 def forward_full(params, cfg, x, *, kv_src=None, want_cache: bool = False,
-                 attn_impl: str = "auto", in_cache=None,
-                 causal: bool = True
+                 attn_impl: str = "auto", remat: bool = False,
+                 in_cache=None, causal: bool = True
                  ) -> Tuple[torch.Tensor, Optional[Pytree]]:
     """x: [B, S, d] embedded inputs -> (hidden [B, S, d], cache | None);
     the cache's leaves are stacked over groups ([G, B, ...]).
     ``kv_src``: [B, Skv, d] cross-attention source (vision or encoder
     states). ``in_cache``: continue the recurrent positions from a
     previous state (mamba / RWKV chunked prefill; its leaves are updated
-    in place); attention positions do not resume this way."""
+    in place); attention positions do not resume this way.
+
+    ``remat``: each group runs under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint`` of the group body): autograd keeps
+    only the group's input and recomputes the group in the backward
+    pass. A recomputed group would read a recurrent state that its first
+    run already wrote into ``in_cache``, so remat takes neither
+    ``in_cache`` nor ``want_cache`` (ValueError); the loss passes
+    neither."""
+    if remat and (in_cache is not None or want_cache):
+        raise ValueError("remat recomputes each group in the backward "
+                         "pass; it takes no in_cache and no want_cache")
     plan = layer_plan(cfg)
     caches: Dict[str, List[Dict[str, torch.Tensor]]] = {
         f"p{j}": [] for j in range(len(plan))}
-    for g in range(cfg.n_groups):
+
+    def group(g, x):
+        cs = []
         for j, pos in enumerate(plan):
             pj = f"p{j}"
             x, c = _pos_full(_group(params[pj], g), cfg, pos, x, kv_src,
@@ -301,7 +315,18 @@ def forward_full(params, cfg, x, *, kv_src=None, want_cache: bool = False,
                              in_cache=(_group_cache(in_cache, pj, g)
                                        if in_cache is not None else None),
                              causal=causal)
-            caches[pj].append(c)
+            cs.append(c)
+        return x, cs
+
+    for g in range(cfg.n_groups):
+        if remat:
+            # the forward draws no random numbers: no RNG state to keep
+            x = checkpoint(lambda x, g=g: group(g, x)[0], x,
+                           use_reentrant=False, preserve_rng_state=False)
+            continue
+        x, cs = group(g, x)
+        for j, c in enumerate(cs):
+            caches[f"p{j}"].append(c)
     if not want_cache:
         return x, None
     return x, {pj: {n: torch.stack([c[n] for c in cs]) for n in cs[0]}

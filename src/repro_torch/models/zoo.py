@@ -5,13 +5,17 @@ MoE, sliding-window, RWKV, the mamba / attention hybrid, the VLM with
 cross-attention) have prefill, decode and extend; only attention-only
 stacks without a window have the paged entry points (None otherwise, as
 in the reference: the page pool holds no ring buffer and no recurrent
-state). The encoder-decoder (whisper) has prefill and decode only.
-Training (``loss``) is not ported.
+state). The encoder-decoder (whisper) has loss, prefill and decode only.
+``loss`` is the training objective of every family (``train/``).
 
 Batch dicts hold int32 tensors on the model's device (``start``/``pos``
 of the dense entries may also be ints); "vision" [B, n_vision_tokens, d]
 (VLM) and "frames" [B, S_enc, d] (encoder-decoder) are float tensors in
 the model's dtype:
+  loss:         {"tokens": [B, S], "labels": [B, S]} (+ "loss_mask"
+                [B, S], + "vision" | "frames"); returns the float32 mean
+                next-token NLL over the unmasked positions
+                (``common.chunked_ce_loss``), differentiable in params
   prefill:      {"tokens": [B, S]} (+ "vision" | "frames")
   decode:       {"tokens": [B], "pos": int | [B]}
   extend:       {"tokens": [B, C], "start": int | [B]} (+ "vision": seeds
@@ -53,7 +57,7 @@ from ..configs.base import ModelConfig
 from ..launch import mesh as M
 from . import layers as L
 from . import transformer as T
-from .common import rms_norm, top1_logits
+from .common import chunked_ce_loss, rms_norm, top1_logits
 
 Pytree = Any
 Entry = Callable[..., Tuple]
@@ -62,6 +66,8 @@ Entry = Callable[..., Tuple]
 @dataclass
 class ModelAPI:
     cfg: ModelConfig
+    # loss(params, batch, *, remat=True, attn_impl="auto") -> scalar
+    loss: Entry
     prefill: Entry
     decode: Entry
     # None for an encoder-decoder stack, as in the reference
@@ -148,6 +154,19 @@ def _build_decoder(cfg: ModelConfig) -> ModelAPI:
 
     def stacks(params):
         return [p["stack"] for p in params]
+
+    def loss(params, batch: Dict, *, remat: bool = True,
+             attn_impl: str = "auto"):
+        """The mean next-token NLL of batch["labels"] (masked by
+        "loss_mask" when given); "vision" is the cross-attention
+        source of a VLM."""
+        h, _ = T.forward_full(params["stack"], cfg,
+                              embed(params, batch["tokens"]),
+                              kv_src=batch.get("vision"), remat=remat,
+                              attn_impl=attn_impl)
+        h = rms_norm(h, params["embed"]["final_norm"], cfg.norm_eps)
+        return chunked_ce_loss(h, L.head_matrix(params["embed"], cfg),
+                               batch["labels"], batch.get("loss_mask"))
 
     def prefill(params, batch: Dict, *, attn_impl: str = "auto"):
         h, cache = T.forward_full(params["stack"], cfg,
@@ -242,7 +261,7 @@ def _build_decoder(cfg: ModelConfig) -> ModelAPI:
 
     paged = T.paged_servable(cfg)
     return ModelAPI(
-        cfg, prefill, decode, extend,
+        cfg, loss, prefill, decode, extend,
         lambda b, s: T.cache_specs(cfg, b, s),
         decode_paged=decode_paged if paged else None,
         extend_paged=extend_paged if paged else None,
@@ -267,9 +286,9 @@ def encdec_configs(cfg: ModelConfig) -> Tuple[ModelConfig, ModelConfig]:
 
 def _build_encdec(cfg: ModelConfig) -> ModelAPI:
     """Whisper: frames arrive embedded ([B, S_enc, d]); the encoder runs
-    them once at prefill, and every decoder layer cross-attends its
-    states. No chunk extension and no paged entries (None, as in the
-    reference)."""
+    them once at prefill (and in the loss), and every decoder layer
+    cross-attends its states. No chunk extension and no paged entries
+    (None, as in the reference)."""
     enc_cfg, dec_cfg = encdec_configs(cfg)
 
     def final(params, h):
@@ -280,6 +299,19 @@ def _build_encdec(cfg: ModelConfig) -> ModelAPI:
         h, _ = T.forward_full(params["encoder"], enc_cfg, frames,
                               causal=False, attn_impl=attn_impl)
         return rms_norm(h, params["enc_norm"], cfg.norm_eps)
+
+    def loss(params, batch: Dict, *, remat: bool = True,
+             attn_impl: str = "auto"):
+        """The decoder's mean next-token NLL over the encoded "frames"
+        (the encoder without remat, the decoder with it, as the
+        reference)."""
+        enc = encode(params, batch["frames"], attn_impl)
+        x = L.embed_tokens(params["embed"], cfg, batch["tokens"])
+        h, _ = T.forward_full(params["decoder"], dec_cfg, x, kv_src=enc,
+                              remat=remat, attn_impl=attn_impl)
+        h = rms_norm(h, params["embed"]["final_norm"], cfg.norm_eps)
+        return chunked_ce_loss(h, L.head_matrix(params["embed"], cfg),
+                               batch["labels"], batch.get("loss_mask"))
 
     def prefill(params, batch: Dict, *, attn_impl: str = "auto"):
         """Encode the frames and prefill the decoder prompt; the self-KV
@@ -316,7 +348,7 @@ def _build_encdec(cfg: ModelConfig) -> ModelAPI:
             out[pj] = c
         return out
 
-    return ModelAPI(cfg, prefill, decode, None, cache_specs)
+    return ModelAPI(cfg, loss, prefill, decode, None, cache_specs)
 
 
 def build(cfg: ModelConfig) -> ModelAPI:

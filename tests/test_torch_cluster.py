@@ -239,8 +239,8 @@ def test_serve_entrypoint_on_cpu():
 
 
 def test_port_imports_with_jax_blocked():
-    """Every module of the port imports with jax unavailable, and none
-    pulls in the JAX package."""
+    """Every module of the port imports with jax unavailable (the
+    training modules among them), and none pulls in the JAX package."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -252,6 +252,10 @@ def test_port_imports_with_jax_blocked():
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
+        "need = {'repro_torch.train.optimizer', "
+        "'repro_torch.train.train_loop', 'repro_torch.train.checkpoint', "
+        "'repro_torch.launch.train'}\n"
+        "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=ENV, cwd=ROOT, timeout=300)

@@ -1098,3 +1098,66 @@ def test_moe_engine_card_matches_cpu(card, arch, paged, tp):
     assert outs["cuda"] == outs["cpu"]
     assert stats["cuda"] == stats["cpu"]
     assert stats["cuda"]["reused_tokens"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-360m", "mixtral-8x22b",
+                                  "rwkv6-7b", "jamba-v0.1-52b",
+                                  "llama-3.2-vision-11b", "whisper-tiny"])
+def test_train_step_card_matches_cpu(card, arch):
+    """One make_train_step step of a reduced float32 family on the card
+    and on the CPU, same parameters and batch, lr 3e-3 from step 0: loss
+    and grad norm within 1e-4 relative, every updated parameter within
+    2.1 lr (an Adam step on a gradient near 0 is +-lr either way). The
+    parameters are drawn in the specs' init kinds with "fan_in" at 0.3 of
+    the reference's scale (tests/test_torch_loss.py: at the full scale
+    float32 rounding moves a reduced stack's grads by up to 3e-2)."""
+    import dataclasses
+    import math
+    from repro_torch import bridge
+    from repro_torch import train as T
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import zoo
+    cfg = dataclasses.replace(reduced(ARCHS[arch]), dtype="float32")
+    g = torch.Generator().manual_seed(0)
+
+    def draw(t):
+        if isinstance(t, dict):
+            return {k: draw(v) for k, v in t.items()}
+        if t.init in ("zeros", "ones"):
+            return torch.full(t.shape, float(t.init == "ones"))
+        scale = (0.3 / math.sqrt(t.shape[-2]) if t.init == "fan_in"
+                 else t.scale)
+        return scale * torch.randn(t.shape, generator=g)
+
+    params = draw(bridge.param_specs(cfg))
+    S = cfg.max_target_len if cfg.encoder_decoder else 32
+    toks = torch.randint(0, cfg.vocab_size, (2, S + 1), generator=g,
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.cross_attn_period and not cfg.encoder_decoder:
+        batch["vision"] = torch.randn(2, cfg.n_vision_tokens, cfg.d_model,
+                                      generator=g)
+    if cfg.encoder_decoder:
+        batch["frames"] = torch.randn(2, 20, cfg.d_model, generator=g)
+    tc = T.TrainConfig(adamw=T.AdamWConfig(lr=3e-3), warmup_steps=0,
+                       total_steps=10)
+    step = T.make_train_step(zoo.build(cfg), tc)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        state = T.init_state(bridge.tree_to(params, dev), tc)
+        new, m = step(state, {k: v.to(dev) for k, v in batch.items()})
+        res[dev] = (bridge.tree_to(new.params, "cpu"), m)
+    (pc, mc), (pg, mg) = res["cpu"], res["cuda"]
+    for k in ("loss", "grad_norm"):
+        assert abs(float(mg[k]) - float(mc[k])) <= 1e-4 * abs(float(mc[k]))
+    lr = float(mc["lr"])
+
+    def walk(a, b):
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k])
+            return
+        assert (a - b).abs().max().item() <= 2.1 * lr
+
+    walk(pc, pg)
