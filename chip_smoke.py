@@ -15,7 +15,14 @@ From the root of a checkout. It
    shapes with CUDA events, beside the least time the card could take,
    with the paged kernel's split plan (n_splits, grid blocks) and
    occupancy at each shape; also at mistral-7b's width (G 4, D 128,
-   8 lanes of up to 1024 tokens);
+   8 lanes of up to 1024 tokens). Wherever the paged or split-K kernel
+   is held against its plain version (here and in every later phase),
+   its one-launch output (the last split block of each (lane, head)
+   merges) must also equal the same kernel's partials merged by the
+   standalone lse_merge_kernel, bit for bit. Then the standalone merge
+   alone, at 8-50 slots and the head widths of smollm-360m, mistral-7b
+   and mixtral-8x22b, bf16 and float32, against its plain version and
+   timed beside its bound and a launch floor (a one-element torch.add);
 3. drives the kernel library (``repro_torch.kernels.bench.run``, the
    counterpart of the JAX package's ``benchmarks/bench_kernels.py``)
    on the card with every launch count at 0, holds the split-K decode,
@@ -88,7 +95,10 @@ From the root of a checkout. It
    executes an E2 migration and a drain migration, card == CPU;
 11. profiles a second, smaller full-width serve with torch.profiler:
    device busy share, launches per step, the costliest kernels, and the
-   paged decode kernel's launches and share of device time;
+   paged decode kernel's launches, device time a call and share of device
+   time; it fails unless every paged call was one launch of the split
+   kernel and no merge kernel ran (the profiled dense mistral-7b serve of
+   step 7 is held to the same for the split-K kernel);
 12. (right after the MoE phase) the recurrent, hybrid and cross-attention
    stacks on the dense plane at full width, random bf16 weights from the
    seed, each freed before the next: rwkv6-7b (32 layers), jamba-v0.1-52b
@@ -240,7 +250,30 @@ def partial_close(torch, name, got, q, kp, vp, plain):
           f"{(err / tol).max().item():.3g}x its bound")
 
 
+def one_launch_equal(torch, name, kind, inp):
+    """The one-launch paged ("paged") or split-K ("decode") call on
+    ``inp`` equals the same kernel's partials (same plan) merged by the
+    standalone lse_merge_kernel, bit for bit: the last split block's merge
+    and the standalone kernel run one routine over the same slots in the
+    same order."""
+    from repro_torch.kernels import paged_attention as PA
+    DA = importlib.import_module("repro_torch.kernels.decode_attention")
+    if kind == "paged":
+        got = PA.paged_decode_attention(*inp)
+        parts = PA.paged_decode_partials(*inp)
+    else:
+        plan = DA.plan_for(inp[0], inp[1])
+        got = DA._launch(*inp, plan)
+        parts = DA._launch(*inp, plan, partials=True)
+    two = PA.lse_merge_partials(*parts, got.dtype)
+    torch.cuda.synchronize()
+    check(torch.equal(got, two),
+          f"{name}: one launch differs from partials + merge by up to "
+          f"{(got.float() - two.float()).abs().max().item():.3e}")
+
+
 def compare(torch, PA, name, inputs, tol):
+    one_launch_equal(torch, name, "paged", inputs)
     return close(torch, name, PA.paged_decode_attention(*inputs),
                  PA.paged_decode_attention_plain(*inputs), tol)
 
@@ -387,16 +420,20 @@ def kernel_phase(torch, PA):
               f"{r['n_splits']} splits of {r['pages_per_split']} pages "
               f"({tile}-token tiles), grid {r['grid_blocks']} blocks on "
               f"{sms} SMs; {blocks} resident blocks/SM x 128 threads, {regs} "
-              f"registers/thread, {smem} B dynamic shared; "
-              f"{r['launches']} launches a call")
+              f"registers/thread, {smem} B dynamic shared; one launch a "
+              "call (the last split block of each (lane, head) merges)")
     ptxas_lines("paged_attention", "paged_split_kernel")
+    ptxas_lines("paged_attention", "lse_merge_kernel")
     return rows
 
 
-def paged_row(torch, PA, flush, width, B, P, max_len, masked, PS=16):
-    """One main-path shape of the paged kernel with lens drawn up to
-    ``max_len``, bf16 pool, as ``paged_timed`` holds and times it.
-    ``width``: (model, H, KH, D)."""
+def paged_row_inputs(torch, width, B, P, max_len, masked, PS=16):
+    """(name, inputs) of one main-path shape of the paged kernel: lens
+    drawn up to ``max_len`` (the first lane full, the second at a page
+    boundary), the last ``masked`` lanes masked as the draft masks a lane
+    (an all-zero page-table row, len 1), live rows zero past their pages,
+    bf16 pool. ``width``: (model, H, KH, D). Also read by
+    time_split_merge.py."""
     model, H, KH, D = width
     rng = torch.Generator().manual_seed(B * P)
     lens = torch.randint(1, max_len + 1, (B,), generator=rng)
@@ -414,7 +451,78 @@ def paged_row(torch, PA, flush, width, B, P, max_len, masked, PS=16):
             pt[b, 0 if b >= B - masked else -(-n // PS):] = 0
     name = f"paged main path {model} B{B} P{P} len<={max_len}" + (
         f" ({masked} masked)" if masked else "")
-    return paged_timed(torch, PA, flush, model, name, inp, masked)
+    return name, inp
+
+
+def paged_row(torch, PA, flush, width, B, P, max_len, masked, PS=16):
+    """One main-path shape of the paged kernel (``paged_row_inputs``), as
+    ``paged_timed`` holds and times it."""
+    name, inp = paged_row_inputs(torch, width, B, P, max_len, masked, PS)
+    return paged_timed(torch, PA, flush, width[0], name, inp, masked)
+
+
+# the standalone merge's timed rows: (model, H, KH, D) of smollm-360m's
+# slot-wise TP merge (G 3, D 64), mistral-7b (G 4, D 128) and
+# mixtral-8x22b (G 6, D 128) at 8 lanes, and the slot counts of the main
+# path's plans (PERF.md §6: 10 smollm serve, 16 smollm TP 2 and smollm
+# B 1, 32 the masked dummy lane, about 50 the dense plan at B 1)
+MERGE_WIDTHS = (("smollm-360m", 15, 5, 64), ("mistral-7b", 32, 8, 128),
+                ("mixtral-8x22b", 48, 8, 128))
+MERGE_SLOTS = (8, 10, 16, 32, 50)
+
+
+def merge_partials(torch, g, B, KH, n, G, D):
+    """f32 partials on the card, acc [B, KH, n, G, D], m and l [B, KH, n,
+    G], about a fifth of the slots empty (m -inf, l 0, acc 0) as splits
+    past a lane's end leave them."""
+    acc = torch.randn(B, KH, n, G, D, generator=g, device="cuda")
+    m = 3 * torch.randn(B, KH, n, G, generator=g, device="cuda")
+    l = 1 + 50 * torch.rand(B, KH, n, G, generator=g, device="cuda")
+    empty = torch.rand(B, KH, n, G, generator=g, device="cuda") < 0.2
+    m[empty], l[empty] = float("-inf"), 0.0
+    acc[empty] = 0.0
+    return acc, m, l
+
+
+def merge_phase(torch, PA, flush, B=8):
+    """The standalone merge (``lse_merge_partials``: one launch of
+    lse_merge_kernel, one warp a row) at MERGE_SLOTS x MERGE_WIDTHS, bf16
+    and float32 output: held against its plain version, then timed beside
+    its bound (the partials read once, the output written once) and a
+    launch floor, a one-element torch.add timed the same way right before
+    it: a lone launch cannot come near a bound of 0.08-3 microseconds
+    (0.3-10 MB of partials), and the floor says how close it can come.
+    Also read by time_split_merge.py for any tree."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    one, dst = torch.ones(1, device="cuda"), torch.empty(1, device="cuda")
+    rows = []
+    for model, H, KH, D in MERGE_WIDTHS:
+        G = H // KH
+        for n in MERGE_SLOTS:
+            acc, m, l = merge_partials(torch, g, B, KH, n, G, D)
+            for dt, tol in ((torch.bfloat16, BF16), (torch.float32, F32)):
+                name = f"merge {model} {n} slots {str(dt)[6:]}"
+                err = close(torch, name, PA.lse_merge_partials(acc, m, l, dt),
+                            PA.lse_merge_partials_plain(acc, m, l, dt), tol)
+                out_bytes = B * H * D * (2 if dt == torch.bfloat16 else 4)
+                b_ms, b_by = bound((acc.numel() + 2 * m.numel()) * 4
+                                   + out_bytes, 0)
+                floor_ms = time_ms(
+                    torch, lambda: torch.add(one, one, out=dst), flush)
+                row = dict(
+                    kernel="lse_merge_partials", width=model,
+                    dtype=str(dt)[6:], B=B, H=H, KH=KH, G=G, D=D, slots=n,
+                    max_abs_err=err,
+                    ms=time_ms(torch, lambda: PA.lse_merge_partials(
+                        acc, m, l, dt), flush),
+                    plain_ms=time_ms(torch, lambda: PA.
+                                     lse_merge_partials_plain(acc, m, l, dt),
+                                     flush, n=10),
+                    library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                    launch_floor_ms=floor_ms)
+                print("merge: " + json.dumps(row))
+                rows.append(row)
+    return rows
 
 
 def paged_timed(torch, PA, flush, model, name, inp, masked):
@@ -469,8 +577,7 @@ def paged_timed(torch, PA, flush, model, name, inp, masked):
                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                hbm_frac=max(bytes_ms, ops_ms) / kernel_ms,
                n_splits=n_splits, pages_per_split=pps,
-               grid_blocks=n_splits * B * KH,
-               launches=1 if n_splits == 1 else 2)
+               grid_blocks=n_splits * B * KH)
     print("kernel: main path " + json.dumps(row))
     return row
 
@@ -635,6 +742,8 @@ def library_phase(torch, bench, DA, PF, FA):
                 e = close(torch, f"decode {dt} G{G} D{D}",
                           dec(q, k, v, lens, n_splits=4),
                           dec_plain(q, k, v, lens, n_splits=4), tol)
+                one_launch_equal(torch, f"decode {dt} G{G} D{D}", "decode",
+                                 (q, k, v, lens))
                 worst[("decode", dt)] = max(worst.get(("decode", dt), 0), e)
                 # 400 (lane, head) pairs: 7 tiles a row plan one split (the
                 # block writes q's dtype), 9 tiles two splits of 5 (merged);
@@ -655,6 +764,8 @@ def library_phase(torch, bench, DA, PF, FA):
                     e = close(torch, f"decode {dt} G{G} D{D} ring {ns} splits",
                               dec(q, k, v, lens), dec_plain(q, k, v, lens),
                               tol)
+                    one_launch_equal(torch, f"decode {dt} G{G} D{D} ring",
+                                     "decode", (q, k, v, lens))
                     worst[("decode", dt)] = max(worst.get(("decode", dt), 0),
                                                 e)
                 # B * G folded rows: <= 64 (4 rows a thread), <= 128 (8),
@@ -741,6 +852,7 @@ def library_phase(torch, bench, DA, PF, FA):
         elif kind == "decode":
             q, k, v, lens = args
             S = k.shape[2]
+            one_launch_equal(torch, f"decode {width}", "decode", args)
             mask = (torch.arange(S, device="cuda")[None, :]
                     < lens[:, None])[:, None, None, :]
             measure("decode", width,
@@ -754,8 +866,8 @@ def library_phase(torch, bench, DA, PF, FA):
             blocks, regs, smem, tile = DA.occupancy(bf, H // KH, D)
             print(f"library: decode plan {width} B{B} S{S}: {ns} splits of "
                   f"{split_len} keys ({tile}-key tiles), grid {ns * KH * B} "
-                  f"blocks on {sms} SMs, {1 if ns == 1 else 2} launches a "
-                  f"call; {blocks} resident blocks/SM x 128 threads, {regs} "
+                  f"blocks on {sms} SMs, one launch a call; {blocks} "
+                  f"resident blocks/SM x 128 threads, {regs} "
                   f"registers/thread, {smem} B dynamic shared")
         else:
             q, kp, vp, ks, vs, lens = args
@@ -1208,6 +1320,8 @@ def served_shapes(torch, DA, PA, flush, served, model):
                 close(torch, f"decode served {model} B{B} "
                       f"lens {lens.tolist()}", DA.decode_attention(*inp),
                       DA.decode_attention_plain(*inp), BF16)
+                one_launch_equal(torch, f"decode served {model} B{B}",
+                                 "decode", inp)
             key = (B, ks[2]) if kind == "decode" else (B,)
             n = last.get(key, (0,))[0]
             last[key] = (n + 1, inp, masked)
@@ -1323,7 +1437,7 @@ def mistral_phase(torch, DA, PA, cfg, zoo, Engine, EngineConfig, Request,
     # bf16 with two reduction orders: reported, not gated
     out.update(agreement(outputs))
     out["request0_tokens"] = {k: v[0] for k, v in outputs.items()}
-    out["dense_profile"] = dense_profile(torch, cfg, params, Engine,
+    out["dense_profile"] = dense_profile(torch, DA, cfg, params, Engine,
                                          EngineConfig, Request, gen_workload)
     print("mistral: " + json.dumps(out))
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -1363,37 +1477,50 @@ def device_kernels(torch, prof):
     return sorted(kernels, reverse=True)
 
 
-def dense_profile(torch, cfg, params, Engine, EngineConfig, Request,
+def dense_profile(torch, DA, cfg, params, Engine, EngineConfig, Request,
                   gen_workload):
     """The dense run again under torch.profiler (device activity only):
-    device busy share of the wall, and the device time of the split-K
-    decode kernel (split kernel + its merge; the paged kernel, the only
-    other user of the merge, does not run on this plane) and of the
-    cache concatenations. Instrumentation only: the phase's wall is the
-    unprofiled run's."""
+    device busy share of the wall, the device time of the split-K decode
+    kernel and of the cache concatenations; fails unless every split-K
+    call was one launch of the split kernel and no merge kernel ran (its
+    last split blocks merge). Instrumentation only: the phase's wall is
+    the unprofiled run's."""
     from torch.profiler import ProfilerActivity, profile
     eng = Engine(cfg, params, EngineConfig(**MISTRAL_ECONF, paged=False),
                  device="cuda")
     reqs = mistral_requests(Request, gen_workload, cfg.vocab_size)
     torch.cuda.synchronize()
+    calls0 = DA.decode_attention.launches
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         serve_waves(eng, reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    calls = DA.decode_attention.launches - calls0
     kernels = device_kernels(torch, prof)
     busy_ms = sum(k[0] for k in kernels) / 1e3
-    if busy_ms == 0.0:
-        return "not measured (the profiler recorded no device time)"
+    check(busy_ms > 0.0, "dense profile: the profiler recorded no device "
+          "time, so the launches a split-K call are not measured")
 
     def ms(*names):
         return sum(k[0] for k in kernels
                    if any(n in k[2] for n in names)) / 1e3
-    split_ms = ms("dense_split_kernel", "lse_merge_kernel")
+
+    def launched(name):
+        return sum(k[1] for k in kernels if name in k[2])
+    split_n, merge_n = launched("dense_split_kernel"), launched(
+        "lse_merge_kernel")
+    check(calls > 0 and split_n == calls and merge_n == 0,
+          f"dense profile: {calls} split-K calls launched the split kernel "
+          f"{split_n} times and the merge kernel {merge_n} times")
+    split_ms = ms("dense_split_kernel")
     cat_ms = ms("CatArrayBatchedCopy")
     return dict(profiled_wall_s=wall, device_busy_ms=busy_ms,
                 device_busy_share=busy_ms / (wall * 1e3),
+                split_k_calls=calls, split_kernel_launches=split_n,
+                merge_launches=merge_n,
                 split_k_decode_ms=split_ms,
+                split_k_decode_ms_per_call=split_ms / calls,
                 split_k_decode_share_of_busy=split_ms / busy_ms,
                 split_k_decode_share_of_wall=split_ms / (wall * 1e3),
                 concat_ms=cat_ms, concat_share_of_busy=cat_ms / busy_ms,
@@ -1406,7 +1533,9 @@ def profile_phase(torch, PA, serve):
     requests) with torch.profiler (device activity only, to keep the
     trace small) over ``cl.run`` only. Reports the device busy share
     (kernel time / profiled wall), kernel launches per engine step and
-    the kernels that take the most device time. Instrumentation only:
+    the kernels that take the most device time; fails unless every paged
+    call was one launch of the split kernel and no merge kernel ran (the
+    last split block of each (lane, head) merges). Instrumentation only:
     nothing here is the main path's measurement."""
     from torch.profiler import ProfilerActivity, profile
     args = serve.parse_args(SERVE_ARGS[:5] + ["4"] + SERVE_ARGS[6:])
@@ -1424,15 +1553,16 @@ def profile_phase(torch, PA, serve):
     steps = sum(e.stats["iterations"] for e in cl.engines.values())
     kernels = device_kernels(torch, prof)
     busy_ms = sum(k[0] for k in kernels) / 1e3
-    if busy_ms == 0.0:
-        print("profile: the profiler recorded no device time "
-              "(device busy share not measured)")
-        return
-    # the paged decode kernel and, on this path, the merge of its splits
-    # (no other kernel of the serve path launches lse_merge_kernel)
+    check(busy_ms > 0.0, "profile: the profiler recorded no device time, "
+          "so the launches a paged call are not measured")
+    calls = PA.paged_decode_attention.launches
     paged = [k for k in kernels if "paged_split_kernel" in k[2]]
     merge = [k for k in kernels if "lse_merge_kernel" in k[2]]
-    paged_ms = sum(k[0] for k in paged + merge) / 1e3
+    split_n, merge_n = sum(k[1] for k in paged), sum(k[1] for k in merge)
+    check(calls > 0 and split_n == calls and merge_n == 0,
+          f"profile: {calls} paged calls launched the split kernel "
+          f"{split_n} times and the merge kernel {merge_n} times")
+    paged_ms = sum(k[0] for k in paged) / 1e3
     out = dict(profiled_wall_s=wall,
                profiler_total_s=time.perf_counter() - t_prof,
                engine_steps=steps,
@@ -1440,10 +1570,9 @@ def profile_phase(torch, PA, serve):
                device_busy_share=busy_ms / (wall * 1e3),
                kernel_launches_per_step=sum(k[1] for k in kernels) / steps,
                paged_decode=dict(
-                   calls=PA.paged_decode_attention.launches,
-                   split_kernel_launches=sum(k[1] for k in paged),
-                   merge_launches=sum(k[1] for k in merge),
-                   device_ms=paged_ms,
+                   calls=calls, split_kernel_launches=split_n,
+                   merge_launches=merge_n, device_ms=paged_ms,
+                   device_ms_per_call=paged_ms / calls,
                    device_share=paged_ms / busy_ms),
                top=[dict(kernel=k[2][:60], ms=k[0] / 1e3, calls=k[1])
                     for k in kernels[:8]])
@@ -3230,6 +3359,10 @@ def main() -> None:
           f"(nvcc {', '.join(f'{k} {v:.1f}s' for k, v in build.build_seconds.items())})")
 
     rows = kernel_phase(torch, PA)
+    t0 = time.perf_counter()
+    merge_phase(torch, PA, torch.empty(64 << 20, dtype=torch.uint8,
+                                       device="cuda"))
+    print(f"merge: phase took {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     lib_launches, lib_rows = library_phase(torch, bench, DA, PF, FA)
     print(f"library: phase took {time.perf_counter() - t0:.1f}s")

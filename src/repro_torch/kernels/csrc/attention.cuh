@@ -1,10 +1,14 @@
 // Building blocks of the port's attention kernels.
 //
-//   lse_merge_kernel      combines the f32 (acc, m, l) partial slots of
-//                         every row: normalised output in the caller's
-//                         dtype, or one combined partial (the split-KV
-//                         decodes of split_kv.cuh and the prefix halves of
-//                         prefix_attention.cu write the slots).
+//   merge_row             one warp's LSE merge of the f32 (acc, m, l)
+//                         partial slots of one row: the normalised output
+//                         in the caller's dtype, or one combined partial.
+//                         The split-KV decodes of split_kv.cuh run it in
+//                         the last split block of each (lane, KV head);
+//   lse_merge_kernel      merge_row over every row, one warp a row, for
+//                         the partials that no split block merges: the
+//                         slot shards of a tensor-parallel pool and the
+//                         two halves of shared-prefix decode;
 //   tile_attend           a 256-thread block's online softmax of a tile of
 //                         BQ query rows (16 * RT) against a key range, in
 //                         64-key tiles staged through shared memory as f32,
@@ -14,11 +18,22 @@
 //                         (f32 accuracy, so no tensor cores); the bf16 ones
 //                         run on wgmma (wgmma.cuh).
 //
-// What bounds them: the merge reads n_slots f32 partials per output
-// element once (bytes); tile_attend's f32 FMAs (operations: the CUDA
-// cores' 67 TFLOP/s, not the tensor cores'). Not done yet (later work):
-// cp.async or TMA staging in tile_attend; a merge fused into the kernels
-// that write the partials.
+// What bounds the merge: not its bytes. It reads n_slots f32 partials of
+// each output element once, 0.1-0.5 MB at the shapes served, a fraction of
+// a microsecond at the HBM rate; what it costs is latency (a chain of
+// dependent loads: the slots' maxima, then their weights, then acc) and,
+// as a kernel of its own, a launch. What the design does about it: one
+// warp a row, so m and l are read once a slot by parallel lanes (32 slots
+// a load), the maximum taken with shuffles and each slot's weight computed
+// once and broadcast; each lane holds D / 32 columns as one vector and
+// issues the acc loads of 8 slots before it uses any. The split-KV decodes
+// need no launch for it at all: their last block merges (split_kv.cuh).
+// The arithmetic is the one-thread-per-element merge's (the JAX package's
+// lse_merge), slot by slot in index order, so every merge of the same
+// partials gives the same bits, wherever it runs. What bounds tile_attend:
+// its f32 FMAs (operations: the CUDA cores' 67 TFLOP/s, not the tensor
+// cores'). Not done yet (later work): cp.async or TMA staging in
+// tile_attend.
 //
 // Layouts: K/V rows are reached through element strides (batch, head,
 // position), the last dim contiguous, so one kernel reads both the
@@ -35,54 +50,151 @@ constexpr int kTileThreads = 256;   // a 16 x 16 grid of threads
 constexpr int kTileK = 64;          // keys per shared-memory tile
 
 // ---------------------------------------------------------------------------
-// LSE merge of the slots of every row
+// LSE merge of the slots of a row
 // ---------------------------------------------------------------------------
 
-// One thread per (row, column). Row r = (bk, g) with bk = r / G indexes a
-// partial buffer [B*KH, n_slots, G, D]. With out: out[r, d] = the merged,
-// normalised value in T. Without: the combined unnormalised partial
-// (acc_out [rows, D], m_out and l_out [rows]), as the Pallas prefix kernel
-// returns it. Same arithmetic as lse_merge in the JAX package.
-template <typename T>
-__global__ void __launch_bounds__(kMergeThreads)
-lse_merge_kernel(const float* __restrict__ acc, const float* __restrict__ m,
-                 const float* __restrict__ l, int rows, int G, int n_slots,
-                 int D, T* __restrict__ out, float* __restrict__ acc_out,
-                 float* __restrict__ m_out, float* __restrict__ l_out) {
-  const long long idx = (long long)blockIdx.x * kMergeThreads + threadIdx.x;
-  if (idx >= (long long)rows * D) return;
-  const int row = (int)(idx / D), d = (int)(idx % D);
-  const size_t base = (size_t)(row / G) * n_slots * G + row % G;
-  float mx = -INFINITY;
-  for (int s = 0; s < n_slots; ++s) mx = fmaxf(mx, m[base + (size_t)s * G]);
-  const float m_safe = mx == -INFINITY ? 0.f : mx;
-  float lt = 0.f, o = 0.f;
-  for (int s = 0; s < n_slots; ++s) {
-    const size_t r = base + (size_t)s * G;
-    const float w = expf(m[r] - m_safe);
-    lt += l[r] * w;
-    o += acc[r * D + d] * w;
-  }
-  if (out != nullptr) {
-    store(out + idx, o / fmaxf(lt, 1e-30f));
+// n (1, 2 or 4) consecutive f32 from global memory, cached in L2 only
+// (__ldcg: the slots may have been written by other SMs in this launch,
+// and L1 is not coherent across SMs). p is 4 * n-byte aligned.
+template <int N>
+__device__ __forceinline__ void ldcg_vec(const float* p, float* out) {
+  if constexpr (N == 4) {
+    const float4 t = __ldcg(reinterpret_cast<const float4*>(p));
+    out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
+  } else if constexpr (N == 2) {
+    const float2 t = __ldcg(reinterpret_cast<const float2*>(p));
+    out[0] = t.x; out[1] = t.y;
   } else {
-    acc_out[idx] = o;
-    if (d == 0) {
-      m_out[row] = mx;
-      l_out[row] = lt;
+    static_assert(N == 1, "1, 2 or 4 floats");
+    out[0] = __ldcg(p);
+  }
+}
+
+// One warp merges the n_slots partials of one row. Slot s of the row is
+// partial row r = row0 + s * stride: acc [r * D, r * D + D), m[r] (natural
+// log, -inf when the slot saw no key) and l[r]. With out: out[orow * D +
+// d] = the normalised merge in T (0 when every slot is empty). Without:
+// the combined unnormalised partial acc_out[orow * D + d], m_out[orow],
+// l_out[orow]. Called by all 32 lanes of the warp.
+template <typename T, int D>
+__device__ __forceinline__ void merge_row(
+    const float* __restrict__ acc, const float* __restrict__ m,
+    const float* __restrict__ l, size_t row0, int stride, int n_slots,
+    T* __restrict__ out, float* __restrict__ acc_out,
+    float* __restrict__ m_out, float* __restrict__ l_out, size_t orow) {
+  constexpr int VW = D >= 32 ? D / 32 : 1;  // columns a lane holds
+  constexpr int U = 8;                       // acc loads issued together
+  constexpr int kCached = 2;                 // chunks of 32 slots whose m
+                                             // and l stay in registers
+  static_assert(D % 32 == 0 || D == 16, "unsupported head width");
+  const int lane = threadIdx.x & 31;
+  const int c0 = lane * VW < D ? lane * VW : 0;  // D 16: lanes 16-31 idle
+  auto slot = [&](int s) { return row0 + (size_t)s * stride; };
+
+  // the slots' maxima, 32 slots a load
+  float mc[kCached], lc[kCached];
+  float mx = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kCached; ++j) {
+    const int s = j * 32 + lane;
+    mc[j] = s < n_slots ? __ldcg(m + slot(s)) : -INFINITY;
+    lc[j] = s < n_slots ? __ldcg(l + slot(s)) : 0.f;
+    mx = fmaxf(mx, mc[j]);
+  }
+  for (int s = kCached * 32 + lane; s < n_slots; s += 32)
+    mx = fmaxf(mx, __ldcg(m + slot(s)));
+  mx = warp_max(mx);
+  const float m_safe = mx == -INFINITY ? 0.f : mx;
+
+  // slots [s0, s0 + 32): lane i holds slot s0 + i's weight w and l, which
+  // every lane takes by shuffle, slot by slot in index order
+  float lt = 0.f, o[VW];
+#pragma unroll
+  for (int e = 0; e < VW; ++e) o[e] = 0.f;
+  auto chunk = [&](int s0, float w, float ls) {
+    const int n = min(32, n_slots - s0);
+    for (int u0 = 0; u0 < n; u0 += U) {
+      float a[U][VW];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (u0 + u < n) ldcg_vec<VW>(acc + slot(s0 + u0 + u) * D + c0, a[u]);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (u0 + u < n) {  // the same for every lane
+          const float wu = __shfl_sync(0xffffffffu, w, u0 + u);
+          const float lu = __shfl_sync(0xffffffffu, ls, u0 + u);
+          lt = fmaf(lu, wu, lt);
+#pragma unroll
+          for (int e = 0; e < VW; ++e) o[e] = fmaf(a[u][e], wu, o[e]);
+        }
+      }
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < kCached; ++j)
+    if (j * 32 < n_slots) chunk(j * 32, expf(mc[j] - m_safe), lc[j]);
+  for (int s0 = kCached * 32; s0 < n_slots; s0 += 32) {
+    const int s = s0 + lane;
+    const float ms = s < n_slots ? __ldcg(m + slot(s)) : -INFINITY;
+    const float ls = s < n_slots ? __ldcg(l + slot(s)) : 0.f;
+    chunk(s0, expf(ms - m_safe), ls);  // exp(-inf) = 0
+  }
+
+  if (lane * VW >= D) return;
+  if (out != nullptr) {
+    const float den = fmaxf(lt, 1e-30f);
+#pragma unroll
+    for (int e = 0; e < VW; ++e) store(out + orow * D + c0 + e, o[e] / den);
+  } else {
+#pragma unroll
+    for (int e = 0; e < VW; ++e) acc_out[orow * D + c0 + e] = o[e];
+    if (lane == 0) {
+      m_out[orow] = mx;
+      l_out[orow] = lt;
     }
   }
 }
 
+// One warp a row, kMergeThreads / 32 rows a block. Row r = (bk, g) with
+// bk = r / G indexes a partial buffer [B*KH, n_slots, G, D] (m and l
+// [B*KH, n_slots, G]); out, or acc_out / m_out / l_out, as merge_row.
+template <typename T, int D>
+__global__ void __launch_bounds__(kMergeThreads)
+lse_merge_kernel(const float* __restrict__ acc, const float* __restrict__ m,
+                 const float* __restrict__ l, int rows, int G, int n_slots,
+                 T* __restrict__ out, float* __restrict__ acc_out,
+                 float* __restrict__ m_out, float* __restrict__ l_out) {
+  const int row = blockIdx.x * (kMergeThreads / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;  // the whole warp
+  merge_row<T, D>(acc, m, l, (size_t)(row / G) * n_slots * G + row % G, G,
+                  n_slots, out, acc_out, m_out, l_out, (size_t)row);
+}
+
+struct MergeLaunch {
+  const float *acc, *m, *l;
+  int rows, G, n_slots;
+  void* out;
+  float *acc_out, *m_out, *l_out;
+  cudaStream_t stream;
+  template <typename T, int D>
+  void operator()() const {
+    const int blocks = (rows + kMergeThreads / 32 - 1) / (kMergeThreads / 32);
+    lse_merge_kernel<T, D><<<blocks, kMergeThreads, 0, stream>>>(
+        acc, m, l, rows, G, n_slots, static_cast<T*>(out), acc_out, m_out,
+        l_out);
+  }
+};
+
+// Launch lse_merge_kernel: out in T, or (out == nullptr) the combined
+// partial. cudaErrorInvalidValue for a head width with no instantiation.
 template <typename T>
 cudaError_t launch_lse_merge(const float* acc, const float* m, const float* l,
                              int rows, int G, int n_slots, int D, T* out,
                              float* acc_out, float* m_out, float* l_out,
                              cudaStream_t stream) {
-  const long long n = (long long)rows * D;
-  const int blocks = (int)((n + kMergeThreads - 1) / kMergeThreads);
-  lse_merge_kernel<T><<<blocks, kMergeThreads, 0, stream>>>(
-      acc, m, l, rows, G, n_slots, D, out, acc_out, m_out, l_out);
+  const MergeLaunch f{acc, m, l, rows, G, n_slots, out, acc_out, m_out,
+                      l_out, stream};
+  if (!dispatch_d<T>(D, f)) return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 

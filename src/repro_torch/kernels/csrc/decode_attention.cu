@@ -29,18 +29,24 @@
 //     at once), with at least one wave of blocks at B 1. The Pallas clamp
 //     of the public n_splits does not apply here: the merged output does
 //     not depend on the split beyond f32 rounding;
-//   * one split: the block normalises and writes q's dtype (one launch).
-//     More: f32 partials in one scratch buffer and lse_merge_kernel.
+//   * one split: the block normalises and writes q's dtype. More: each
+//     split that holds a key writes its f32 partial to one scratch
+//     buffer, and the last of them to arrive merges the (lane, KV head)'s
+//     slots into q's dtype (split_kv.cuh: an arrival counter per (lane,
+//     head) in a workspace the wrapper keeps at 0 between calls). One
+//     launch either way: the merge is latency and a launch, not bytes
+//     (attention.cuh), and as the last block's tail it needs no launch of
+//     its own; each split pays one fence instead. With no out
+//     (the partials entry) every split's partial, empty ones included, is
+//     left for a merge elsewhere.
 // Measured on an H100 80GB HBM3 at 700 W (tools/ablate_decode.py, B 8,
 // S 8192, KH 8, D 128, every lane full): the copies alone move the cache
 // at about 2.6 TB/s, 77 % of the data sheet's rate, and the products and
 // softmax alone take two thirds of that time, so the kernel is bound by
 // its copies, not by instruction issue; with ragged lanes the longest
 // lanes' splits add a tail.
-// Not done yet (later work): bulk (TMA) copies into a deeper ring,
-// persistent blocks taking splits longest lane first, and a merge inside
-// the split kernel (the last block of a (lane, head) merges), which
-// would save the second launch.
+// Not done yet (later work): bulk (TMA) copies into a deeper ring, and
+// persistent blocks taking splits longest lane first.
 #include "attention.cuh"
 #include "split_kv.cuh"
 
@@ -52,20 +58,18 @@ struct LaunchFn {
   const void *q, *k, *v, *lens;
   void* out;
   float *acc, *m, *l;
+  int* counters;
   int B, H, KH, S, n_split, split_len;
   long long kv_sb, kv_sh, kv_ss;
   cudaStream_t stream;
   cudaError_t* err;
   template <typename T, int G, int D>
   void operator()() const {
-    const bool direct = n_split == 1;
+    const bool direct = n_split == 1 && out != nullptr;
     *err = skv::launch_dense_split<T, G, D>(
-        q, k, v, lens, out, direct ? nullptr : acc, m, l, B, H, KH, S,
-        n_split, split_len, n_split, 0, kv_sb, kv_sh, kv_ss, stream);
-    if (*err != cudaSuccess || direct) return;
-    *err = repro::launch_lse_merge<T>(acc, m, l, B * H, G, n_split, D,
-                                      static_cast<T*>(out), nullptr, nullptr,
-                                      nullptr, stream);
+        q, k, v, lens, out, direct ? nullptr : acc, m, l,
+        direct || out == nullptr ? nullptr : counters, B, H, KH, S, n_split,
+        split_len, n_split, 0, kv_sb, kv_sh, kv_ss, stream);
   }
 };
 
@@ -88,25 +92,32 @@ extern "C" {
 // share the element strides kv_sb, kv_sh, kv_ss of their batch, head and
 // position dims (last dim contiguous); lens [B] int32. Split si covers
 // positions [si * split_len, (si + 1) * split_len). With n_split > 1, acc
-// [B, KH, n_split, G, D] and m, l [B, KH, n_split, G] are f32 scratch
-// (unused with one split). Returns the cudaError_t of the launches (0 =
-// success); cudaErrorInvalidValue when (dtype, G, D) has no instantiation.
+// [B, KH, n_split, G, D] and m, l [B, KH, n_split, G] are f32 scratch,
+// and counters [B * KH] int32 are 0 on entry and left at 0 by the launch
+// (all unused with one split and out). out == NULL: no merge, every
+// split's partial (m in natural log units) is left in acc, m, l, whatever
+// n_split (counters unused). One launch. Returns its cudaError_t (0 =
+// success); cudaErrorInvalidValue when (dtype, G, D) has no
+// instantiation.
 int repro_decode_attention(const void* q, const void* k, const void* v,
                            const void* lens, void* acc, void* m, void* l,
-                           void* out, int B, int H, int KH, int D, int S,
-                           int n_split, int split_len, long long kv_sb,
-                           long long kv_sh, long long kv_ss, int dtype,
-                           void* stream) {
+                           void* counters, void* out, int B, int H, int KH,
+                           int D, int S, int n_split, int split_len,
+                           long long kv_sb, long long kv_sh, long long kv_ss,
+                           int dtype, void* stream) {
+  const bool merge = out != nullptr && n_split > 1;
   if (B <= 0 || KH <= 0 || H % KH != 0 || S <= 0 || n_split <= 0 ||
       split_len <= 0 || (long long)n_split * split_len < S ||
-      (n_split > 1 && (acc == nullptr || m == nullptr || l == nullptr)))
+      ((n_split > 1 || out == nullptr) &&
+       (acc == nullptr || m == nullptr || l == nullptr)) ||
+      (merge && counters == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
   const LaunchFn f{q, k, v, lens, out,
                    static_cast<float*>(acc), static_cast<float*>(m),
-                   static_cast<float*>(l), B, H, KH, S, n_split, split_len,
-                   kv_sb, kv_sh, kv_ss, static_cast<cudaStream_t>(stream),
-                   &err};
+                   static_cast<float*>(l), static_cast<int*>(counters), B, H,
+                   KH, S, n_split, split_len, kv_sb, kv_sh, kv_ss,
+                   static_cast<cudaStream_t>(stream), &err};
   if (!repro::dispatch_dtype_gd(dtype, H / KH, D, f))
     return (int)cudaErrorInvalidValue;
   return (int)err;

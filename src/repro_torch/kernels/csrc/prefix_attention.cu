@@ -48,14 +48,17 @@
 //     the merge), so that its large blocks are placed first, and the
 //     suffix on the caller's stream, its 48 KB blocks filling the room
 //     the prefix blocks leave on each SM;
-//   * one lse_merge_kernel launch combines the slots: the normalised
-//     output in q's dtype (prefix_attention), or the prefix's combined
-//     (acc, m, l) (prefix_partial; with one split the block writes it
-//     directly and nothing is merged).
+//   * one launch of the standalone lse_merge_kernel (one warp a row,
+//     attention.cuh) combines the slots: the normalised output in q's
+//     dtype (prefix_attention), or the prefix's combined (acc, m, l)
+//     (prefix_partial; with one split the block writes it directly and
+//     nothing is merged). The suffix's splits do not merge themselves
+//     (no arrival counters): their slots sit beside the prefix's, which
+//     another kernel writes.
 // Not done yet (later work): combining the prefix splits' partials inside
 // a thread-block cluster through distributed shared memory before they
 // reach device memory, and a merge fused into the last block of each
-// (lane, head).
+// (lane, head) over both halves' slots.
 #include <mutex>
 #include <type_traits>
 
@@ -407,8 +410,8 @@ struct SuffixFn {
   template <typename T, int G, int D>
   void operator()() const {
     *err = repro::skv::launch_dense_split<T, G, D>(
-        q, ks, vs, lens, nullptr, acc, m, l, B, H, KH, Ss, n_sfx, sfx_len,
-        n_slots, slot0, sb, sh, ss, stream);
+        q, ks, vs, lens, nullptr, acc, m, l, nullptr, B, H, KH, Ss, n_sfx,
+        sfx_len, n_slots, slot0, sb, sh, ss, stream);
   }
 };
 

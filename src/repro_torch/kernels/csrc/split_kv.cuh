@@ -32,18 +32,38 @@
 //     per lane group and rescaled once a tile, so a tile costs one block
 //     barrier (the pipeline's). Groups and warps merge once a split;
 //   * V is read as 16-byte vectors from shared memory;
-//   * a split that starts past its lane's length writes the empty
-//     partial (acc 0, m -inf, l 0) and returns. With acc_out == nullptr
-//     (one split a row) the block normalises and writes q's dtype;
-//     otherwise it writes its f32 partial (m as a natural-log max) to
-//     slot slot0 + split of [B, KH, n_slots, G, (D)] for lse_merge_kernel.
+//   * a split that starts past its lane's length takes no tile; it
+//     writes the empty partial (acc 0, m -inf, l 0) unless merged in the
+//     launch (below). With acc_out == nullptr (one split a row) the block
+//     normalises and writes q's dtype; otherwise it writes its f32
+//     partial (m as a natural-log max) to slot slot0 + split of [B, KH,
+//     n_slots, G, (D)];
+//   * with counters (paged and dense decode with more than one split) the
+//     splits of a (lane, head) merge themselves, in the one launch: each
+//     block that holds a key, having written its partial, passes a block
+//     barrier, and its thread 0 fences and bumps the (lane, head)'s
+//     arrival counter; the block that arrives last of the lane's
+//     non-empty splits merges their slots for its G rows, one warp a row
+//     (merge_row of attention.cuh, the standalone merge's routine, slots
+//     in index order, so the result does not depend on which block came
+//     last and equals the partials merged by lse_merge_kernel bit for
+//     bit: an empty slot adds exact zeros there), writes q's dtype and
+//     sets the counter back to 0 for the next launch. A merge is latency
+//     and a launch, not bytes (attention.cuh): here it costs no launch,
+//     and its loads overlap the other blocks' splits. What it costs
+//     instead is the fence: a block's slot is held until its partial has
+//     reached L2, which under a saturated memory system is microseconds,
+//     so empty splits (past their lane's end) write nothing and skip it;
+//     a lane of len 0 gets 0 from its first split. Without counters the
+//     partials, empty ones included, stay for a merge elsewhere: the slot
+//     shards of a tensor-parallel pool, the suffix of shared-prefix
+//     decode.
 // Not done yet (later work): bulk (TMA) copies into a deeper ring, since
 // the copies, not the products, set the time (see decode_attention.cu);
-// persistent blocks that take splits from a queue; a merge inside the
-// last block of each (lane, head).
+// persistent blocks that take splits from a queue.
 #pragma once
 
-#include "common.cuh"
+#include "attention.cuh"
 
 namespace repro {
 namespace skv {
@@ -115,6 +135,39 @@ struct DenseRows {
   __device__ long long offset(int pos) const { return base + pos * ss; }
 };
 
+// The end of a split block whose (lane b, head h) has counters: its
+// partial is written; the block that arrives last of the lane's n_valid
+// splits that hold a key merges their slots into out (q's dtype), one
+// warp a row (empty splits weigh exactly 0 in a merge, so they neither
+// write nor arrive). All threads of the block call it. The barrier puts
+// every thread's partial before thread 0's fence and atomic, as a
+// grid-wide sync does: one fence a block, not one a thread. Shared
+// memory: one int at smem_raw, free by then (the ring is drained and the
+// warp merge's reads are behind the barrier).
+template <typename T, int G, int D>
+__device__ __forceinline__ void arrive_and_merge(
+    int* __restrict__ counters, const float* acc, const float* m,
+    const float* l, T* __restrict__ out, int b, int h, int H, int KH,
+    int n_slots, int n_valid, uint4* smem_raw) {
+  int* last = reinterpret_cast<int*>(smem_raw);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int* c = counters + (size_t)b * KH + h;
+    __threadfence();  // the block's partial before the arrival
+    const bool is_last = atomicAdd(c, 1) == n_valid - 1;
+    if (is_last) *c = 0;  // every split has arrived: clean for the next call
+    __threadfence();  // the others' partials after the arrival
+    *last = is_last;
+  }
+  __syncthreads();
+  if (!*last) return;
+  const size_t row0 = ((size_t)b * KH + h) * n_slots * G;
+  const size_t orow0 = (size_t)b * H + (size_t)h * G;
+  for (int g = threadIdx.x >> 5; g < G; g += kWarps)
+    merge_row<T, D>(acc, m, l, row0 + g, G, n_valid, out, nullptr, nullptr,
+                    nullptr, orow0 + g);
+}
+
 // The split-KV body; see the header. Grid (splits, KH, B), kThreads
 // threads, dynamic shared memory Cfg::ring_bytes plus what rows.begin
 // keeps after the ring. Split si covers [si * split_len, (si + 1) *
@@ -123,9 +176,9 @@ template <typename T, int G, int D, typename Rows>
 __device__ __forceinline__ void split_kv(
     Rows rows, const T* __restrict__ q, const int32_t* __restrict__ lens,
     T* __restrict__ out, float* __restrict__ acc_out,
-    float* __restrict__ m_out, float* __restrict__ l_out, int H, int KH,
-    int max_len, int split_len, int n_slots, int slot0, float scale_log2,
-    uint4* smem_raw) {
+    float* __restrict__ m_out, float* __restrict__ l_out,
+    int* __restrict__ counters, int H, int KH, int max_len, int split_len,
+    int n_slots, int slot0, float scale_log2, uint4* smem_raw) {
   using C = Cfg<T, D>;
   constexpr int kVec = C::kVec, L = C::L, NTW = C::NTW, TT = C::TT;
   T* ring = reinterpret_cast<T*>(smem_raw);  // kStages x {K, V} [TT][D]
@@ -140,10 +193,15 @@ __device__ __forceinline__ void split_kv(
   const int t_end = min(t_begin + split_len, len);
   const size_t row0 = (((size_t)b * KH + h) * n_slots + slot0 + si) * G;
 
+  const int n_valid = (len + split_len - 1) / split_len;  // splits with keys
+
   if (t_begin >= t_end) {  // nothing of this lane here
-    if (acc_out == nullptr) {  // len 0: 0, as the TPU kernels
+    if (acc_out == nullptr || counters != nullptr) {
+      // one split, or merged here (empty splits are skipped): a lane of
+      // len 0 gets 0 from its first split, as from the TPU kernels
       T* ob = out + ((size_t)b * H + (size_t)h * G) * D;
-      for (int i = tid; i < G * D; i += kThreads) store(ob + i, 0.f);
+      if (si == 0)
+        for (int i = tid; i < G * D; i += kThreads) store(ob + i, 0.f);
     } else {
       for (int i = tid; i < G * D; i += kThreads) acc_out[row0 * D + i] = 0.f;
       if (tid < G) {
@@ -317,33 +375,38 @@ __device__ __forceinline__ void split_kv(
       }
     }
   }
+  if (counters != nullptr)
+    arrive_and_merge<T, G, D>(counters, acc_out, m_out, l_out, out, b, h, H,
+                              KH, n_slots, n_valid, smem_raw);
 }
 
 // Split-KV over dense strided rows: grid (splits, KH, B), split si into
-// slot slot0 + si of n_slots (acc == nullptr: one split, out written).
+// slot slot0 + si of n_slots (acc == nullptr: one split, out written;
+// counters: the last split of each (lane, head) merges into out).
 template <typename T, int G, int D>
 __global__ void __launch_bounds__(kThreads)
 dense_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const int32_t* __restrict__ lens,
                    T* __restrict__ out, float* __restrict__ acc,
-                   float* __restrict__ m, float* __restrict__ l, int H,
-                   int KH, int S, int split_len, int n_slots, int slot0,
-                   long long sb, long long sh, long long ss,
-                   float scale_log2) {
+                   float* __restrict__ m, float* __restrict__ l,
+                   int* __restrict__ counters, int H, int KH, int S,
+                   int split_len, int n_slots, int slot0, long long sb,
+                   long long sh, long long ss, float scale_log2) {
   extern __shared__ uint4 smem_raw[];
   const DenseRows<T> rows{k, v, sb, sh, ss, 0};
-  split_kv<T, G, D>(rows, q, lens, out, acc, m, l, H, KH, S, split_len,
-                    n_slots, slot0, scale_log2, smem_raw);
+  split_kv<T, G, D>(rows, q, lens, out, acc, m, l, counters, H, KH, S,
+                    split_len, n_slots, slot0, scale_log2, smem_raw);
 }
 
-// Launch dense_split_kernel (acc == nullptr: n_split must be 1).
+// Launch dense_split_kernel (acc == nullptr: n_split must be 1; counters
+// [B * KH] at 0: n_slots == n_split and slot0 0, out receives the merge).
 template <typename T, int G, int D>
 cudaError_t launch_dense_split(const void* q, const void* k, const void* v,
                                const void* lens, void* out, float* acc,
-                               float* m, float* l, int B, int H, int KH,
-                               int S, int n_split, int split_len,
-                               int n_slots, int slot0, long long sb,
-                               long long sh, long long ss,
+                               float* m, float* l, int* counters, int B,
+                               int H, int KH, int S, int n_split,
+                               int split_len, int n_slots, int slot0,
+                               long long sb, long long sh, long long ss,
                                cudaStream_t stream) {
   auto* kernel = &dense_split_kernel<T, G, D>;
   const size_t smem = Cfg<T, D>::ring_bytes;
@@ -353,8 +416,8 @@ cudaError_t launch_dense_split(const void* q, const void* k, const void* v,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(lens),
-      static_cast<T*>(out), acc, m, l, H, KH, S, split_len, n_slots, slot0,
-      sb, sh, ss, inv_sqrt(D) * kLog2e);
+      static_cast<T*>(out), acc, m, l, counters, H, KH, S, split_len,
+      n_slots, slot0, sb, sh, ss, inv_sqrt(D) * kLog2e);
   return cudaGetLastError();
 }
 

@@ -9,7 +9,9 @@ merged by the jnp ``lse_merge``). The CUDA source is
 (memory: the valid KV bytes) and what its design does about that (K/V
 tiles staged by a cp.async ring, lanes of a warp splitting D with the G
 query rows in registers, per-lane-group softmax state, f32 partials in
-one scratch buffer merged by a second small kernel).
+one scratch buffer merged in the same launch by the last split block of
+each (lane, KV head), through the arrival counters of
+``paged_attention.arrival_counters``).
 
 ``split_plan`` chooses the splits on the host from B, KH, S, the tile and
 the SM count only, never from ``lens`` (reading them back would sync).
@@ -22,8 +24,8 @@ rounding.
 ``decode_attention`` takes the plain version only for tensors that lie on
 the CPU. For CUDA tensors it launches the kernel or raises; it never falls
 back. ``decode_attention.launches`` counts calls that launched the kernel
-(one launch with one split, the split kernel and its merge otherwise),
-never plain-version calls.
+(one launch a call, whatever the split count), never plain-version
+calls.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from typing import Tuple
 import torch
 
 from . import build, checks
-from .paged_attention import tile_tokens
+from .paged_attention import arrival_counters, tile_tokens
 
 NEG_INF = float("-inf")
 _LIB = "decode_attention"
@@ -122,7 +124,7 @@ def split_plan(B: int, KH: int, S: int, tile: int,
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.repro_decode_attention
     if fn.argtypes is None:             # first load: declare the C types
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
             + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         occ = lib.repro_decode_occupancy
@@ -184,34 +186,48 @@ def decode_attention(q, k, v, lens, *, n_splits: int = 8):
     return _launch(q, k, v, lens, plan_for(q, k))
 
 
-def _launch(q, k, v, lens, plan: Tuple[int, int]):
+def _launch(q, k, v, lens, plan: Tuple[int, int], partials: bool = False):
     """Run the kernel with ``plan`` = (n_splits, keys per split), checked
-    CUDA tensors (the plan of ``plan_for``, or another for measuring it)."""
+    CUDA tensors (the plan of ``plan_for``, or another for measuring it).
+    ``partials``: no merge; returns every split's f32 partial, acc
+    [B, KH, ns, G, D], m and l [B, KH, ns, G] (m in natural log units),
+    which ``paged_attention.lse_merge_partials`` merges as the kernel's
+    last blocks do."""
     B, H, D = q.shape
     KH, S = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
-    if B == 0:
-        return out
+    G = H // KH
     ns, split_len = plan
-    if ns > 1:
-        # one scratch buffer: acc [B, KH, ns, G, D], then m and l
-        # [B, KH, ns, G]
-        rows = B * H * ns
-        scratch = torch.empty(rows * (D + 2), dtype=torch.float32,
-                              device=q.device)
-        base = scratch.data_ptr()
-        ptrs = (base, base + rows * D * 4, base + rows * (D + 1) * 4)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if partials:
+        res = (torch.empty(B, KH, ns, G, D, **f32),
+               torch.empty(B, KH, ns, G, **f32),
+               torch.empty(B, KH, ns, G, **f32))
     else:
-        ptrs = (None, None, None)
+        res = torch.empty_like(q)
+    if B == 0:
+        return res
+    if partials:
+        ptrs = tuple(t.data_ptr() for t in res) + (None, None)
+    elif ns > 1:
+        # one scratch buffer: acc [B, KH, ns, G, D], then m and l
+        # [B, KH, ns, G]; the (lane, head) arrival counters
+        rows = B * H * ns
+        scratch = torch.empty(rows * (D + 2), **f32)
+        base = scratch.data_ptr()
+        ptrs = (base, base + rows * D * 4, base + rows * (D + 1) * 4,
+                arrival_counters(q.device, B * KH).data_ptr(),
+                res.data_ptr())
+    else:
+        ptrs = (None, None, None, None, res.data_ptr())
     lib = _lib()
     err = lib.repro_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), *ptrs,
-        out.data_ptr(), B, H, KH, D, S, ns, split_len, k.stride(0),
-        k.stride(1), k.stride(2), checks.DTYPE_CODE[q.dtype],
+        B, H, KH, D, S, ns, split_len, k.stride(0), k.stride(1),
+        k.stride(2), checks.DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "decode_attention launch")
     decode_attention.launches += 1
-    return out
+    return res
 
 
 decode_attention.launches = 0

@@ -8,8 +8,12 @@ its header says what bounds the kernel on an H100 (memory: the KV bytes
 the lanes need, sum_b len_b * KH * D * 2 * itemsize) and what its design
 does about that (split-KV grid (n_splits, KH, B) of whole-page splits,
 pages staged through shared memory by a cp.async ring, the G query rows
-sharing every K/V row read, per-warp softmax state merged once a split,
-and ``lse_merge`` over the splits' f32 partials).
+sharing every K/V row read, per-warp softmax state merged once a split).
+The splits' f32 partials are merged inside the same launch by the last
+split block of each (lane, KV head) to finish: a merge costs latency and
+a launch, not bytes, so it rides on the split kernel. Its arrival
+counters live in a workspace per (card, stream) that every launch leaves
+at 0 (``arrival_counters``).
 
 ``split_plan`` chooses the splits on the host from host-known values
 only (B, KH, the table width, the SM count), never from ``lens``, which
@@ -18,9 +22,10 @@ live on the card: reading them would cost a host sync on every layer.
 ``paged_decode_attention`` takes the plain version only for tensors that
 lie on the CPU. For CUDA tensors it launches the kernel or raises; it
 never falls back. ``paged_decode_attention.launches`` counts calls that
-went through the kernel: one launch when the plan has one split, two
-(the split kernel and the merge) otherwise. Plain-version calls never
-count.
+went through the kernel, one launch each whatever the split count.
+Plain-version calls never count. ``paged_decode_partials`` (the kernel's
+partials, unmerged) and ``lse_merge_partials`` (the standalone merge, one
+warp a row) serve the slot shards of a tensor-parallel pool.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from .checks import GROUPS, HEAD_DIMS  # the built (G, D)
 
 _LIB = "paged_attention"
 BLOCKS_PER_SM = 3        # the split plan's aim: about 3 blocks on each SM
+_COUNTERS = {}           # (card, stream) -> int32 arrival counters, at 0
 
 
 def tile_tokens(dtype: torch.dtype, D: int) -> int:
@@ -86,11 +92,29 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_table, lens):
     return o.reshape(B, H, D).to(q.dtype)
 
 
+def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 arrival counters, all 0, for a split kernel
+    launched on the current stream of ``device``: one per (lane, KV head),
+    which the last split block to arrive sets back to 0. So the workspace
+    is zeroed only when it is made or grown, never per call; and there is
+    one per stream, so that launches on two streams never share one."""
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device_index, stream.cuda_stream)
+    ws = _COUNTERS.get(key)
+    if ws is None or ws.numel() < n:
+        # made on the stream that uses it: a grown workspace frees the old
+        # one only after that stream's queued launches. 1024 covers every
+        # served B * KH (32 lanes x 8 KV heads at most)
+        ws = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[key] = ws
+    return ws
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load(_LIB)
     fn = lib.repro_paged_decode_attention
     if fn.argtypes is None:             # first load: declare the C types
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         part = lib.repro_paged_decode_partials
@@ -186,14 +210,15 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lens):
     G = H // KH
     if n_splits > 1:
         # one scratch buffer: acc [B, KH, n_splits, G, D], then m and l
-        # [B, KH, n_splits, G]
+        # [B, KH, n_splits, G]; the (lane, head) arrival counters
         rows = B * KH * n_splits * G
         scratch = torch.empty(rows * (D + 2), dtype=torch.float32,
                               device=q.device)
         base = scratch.data_ptr()
-        ptrs = (base, base + rows * D * 4, base + rows * (D + 1) * 4)
+        ptrs = (base, base + rows * D * 4, base + rows * (D + 1) * 4,
+                arrival_counters(q.device, B * KH).data_ptr())
     else:
-        ptrs = (None, None, None)
+        ptrs = (None, None, None, None)
     lib = _lib()
     err = lib.repro_paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -295,7 +320,8 @@ def lse_merge_partials(acc, m, l, dtype):
     """Merge the f32 partials of every slot (splits of one or more shards,
     concatenated along axis 2): acc [B, KH, n, G, D], m and l
     [B, KH, n, G] -> [B, KH * G, D] in ``dtype``, in one launch of
-    ``lse_merge_kernel`` on a card; the plain version on CPU tensors."""
+    ``lse_merge_kernel`` (one warp a row) on a card; the plain version on
+    CPU tensors."""
     if acc.device.type == "cpu":
         return lse_merge_partials_plain(acc, m, l, dtype)
     if acc.device.type != "cuda":
@@ -312,6 +338,9 @@ def lse_merge_partials(acc, m, l, dtype):
     B, KH, n, G, D = acc.shape
     if m.shape != acc.shape[:4] or l.shape != acc.shape[:4]:
         raise ValueError("lse_merge_partials: m/l do not match acc")
+    if D not in HEAD_DIMS or acc.data_ptr() % 16:
+        raise ValueError(f"lse_merge_partials: D {D} not built (D in "
+                         f"{HEAD_DIMS}) or acc not 16-byte aligned")
     out = torch.empty((B, KH * G, D), dtype=dtype, device=acc.device)
     if out.numel() == 0:
         return out

@@ -1161,3 +1161,209 @@ def test_train_step_card_matches_cpu(card, arch):
         assert (a - b).abs().max().item() <= 2.1 * lr
 
     walk(pc, pg)
+
+
+# ---------------------------------------------------------------------------
+# the split merge: inside the last split block, and the standalone kernel
+# ---------------------------------------------------------------------------
+
+def _counters_clean(dev="cuda"):
+    """Every arrival counter of the current stream's workspace is back at
+    0 (the last block of each (lane, head) resets its own)."""
+    torch.cuda.synchronize()
+    return bool((PA.arrival_counters(torch.device(dev), 0) == 0).all())
+
+
+def _paged_lanes(rng, dtype, G, D, lens, P, KH=2, PS=16):
+    """q, a pool of distinct pages for len(lens) lanes, and their lens."""
+    B = len(lens)
+    n_pages = B * P + 1
+    q = _card(rng, dtype, B, G * KH, D)
+    k, v = (_card(rng, dtype, n_pages, PS, KH, D),
+            _card(rng, dtype, n_pages, PS, KH, D))
+    pt = (rng.permutation(n_pages - 1)[:B * P] + 1).reshape(B, P)
+    pt = torch.from_numpy(pt.astype(np.int32)).cuda()
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return q, k, v, pt, lens
+
+
+def _paged_one_launch_is_partials_plus_merge(inp, dtype):
+    """The one-launch call equals the partials entry merged by the
+    standalone kernel, bit for bit, launching once; and it agrees with
+    the plain version."""
+    n0 = PA.paged_decode_attention.launches
+    got = PA.paged_decode_attention(*inp)
+    torch.cuda.synchronize()
+    assert PA.paged_decode_attention.launches == n0 + 1
+    two = PA.lse_merge_partials(*PA.paged_decode_partials(*inp), dtype)
+    assert torch.equal(got, two), \
+        f"max |one - two| {(got.float() - two.float()).abs().max().item()}"
+    _assert_close(got, PA.paged_decode_attention_plain(*inp), dtype)
+    assert _counters_clean()
+
+
+def _dense_one_launch_is_partials_plus_merge(inp, plan, dtype):
+    n0 = decode_attention.launches
+    got = DA._launch(*inp, plan)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == n0 + 1
+    acc, m, l = DA._launch(*inp, plan, partials=True)
+    assert acc.shape[2] == plan[0]
+    two = PA.lse_merge_partials(acc, m, l, dtype)
+    assert torch.equal(got, two), \
+        f"max |one - two| {(got.float() - two.float()).abs().max().item()}"
+    _assert_close(got, decode_attention_plain(*inp), dtype)
+    assert _counters_clean()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", GROUPS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_one_launch_paged_equals_partials_plus_merge(card, dtype, G, D):
+    """Lanes of len 0, 1, one page, one tile plus one, and a full one;
+    then lanes that all end in the table's first third, so that its last
+    splits are past every lane's end."""
+    rng = np.random.default_rng(G * D)
+    P, PS = 32, 16
+    tile = PA.tile_tokens(dtype, D)
+    for lens in ([0, 1, PS, tile + 1, P * PS], [0, 5, P * PS // 3, 40]):
+        inp = _paged_lanes(rng, dtype, G, D, lens, P)
+        n_splits, pps = PA.plan_for(inp[0], inp[1], inp[3])
+        assert n_splits > 2
+        if lens[-1] != P * PS:
+            assert (n_splits - 1) * pps * PS > max(lens)
+        _paged_one_launch_is_partials_plus_merge(inp, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", GROUPS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_one_launch_dense_equals_partials_plus_merge(card, dtype, G, D):
+    """The split-K decode on the model-layout view, its own plan, lanes
+    of len 0 and lanes that end before the cache's last splits."""
+    rng = np.random.default_rng(G * D + 1)
+    B, KH, S = 4, 2, 1500
+    q = _card(rng, dtype, B, G * KH, D)
+    k = _card(rng, dtype, B, S, KH, D).transpose(1, 2)
+    v = _card(rng, dtype, B, S, KH, D).transpose(1, 2)
+    for lens in ([0, 1, 700, S], [0, 3, 100, 350]):
+        inp = (q, k, v, torch.tensor(lens, dtype=torch.int32,
+                                     device="cuda"))
+        plan = DA.plan_for(q, k)
+        assert plan[0] > 2
+        _dense_one_launch_is_partials_plus_merge(inp, plan, dtype)
+
+
+# split counts of the main path's plans (PERF.md §6), one, and past 32
+SPLITS = [1, 2, 7, 16, 22, 32, 33, 50]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SPLITS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_one_launch_at_every_split_count(card, dtype, n):
+    """Paged (one lane a KV head's plan of n splits: a table of n whole
+    splits of one tile) and dense (n splits of one tile through _launch)
+    at G 4, D 128 and G 3, D 64, lanes of len 0 and lanes that end early."""
+    rng = np.random.default_rng(n)
+    for G, D in ((4, 128), (3, 64)):
+        tile = PA.tile_tokens(dtype, D)
+        min_pages = -(-tile // 16)
+        inp = _paged_lanes(rng, dtype, G, D, [n * tile, 0], n * min_pages)
+        assert PA.plan_for(inp[0], inp[1], inp[3])[0] == n
+        _paged_one_launch_is_partials_plus_merge(inp, dtype)
+        S = n * tile
+        B, KH = 3, 2
+        q = _card(rng, dtype, B, G * KH, D)
+        k, v = (_card(rng, dtype, B, KH, S, D), _card(rng, dtype, B, KH, S, D))
+        lens = torch.tensor([S, 0, max(1, S // 3)], dtype=torch.int32,
+                            device="cuda")
+        _dense_one_launch_is_partials_plus_merge((q, k, v, lens), (n, tile),
+                                                 dtype)
+
+
+@pytest.mark.cuda
+def test_counter_workspace_back_to_back_and_on_a_second_stream(card):
+    """Calls of different shapes queued back to back share the current
+    stream's counters with no sync between them; a call on a second
+    stream takes that stream's own workspace. Each output equals the
+    plain version, and every counter is left at 0."""
+    rng = np.random.default_rng(99)
+    bf = torch.bfloat16
+    calls = []
+    for G, D, lens, P in ((3, 64, [0, 700, 1024, 9], 64),
+                          (4, 128, [2048], 128), (8, 64, [5, 300], 32)):
+        inp = _paged_lanes(rng, bf, G, D, lens, P)
+        calls.append((PA.paged_decode_attention, PA.paged_decode_attention_plain,
+                      inp))
+        S = P * 16
+        B = len(lens)
+        q = _card(rng, bf, B, G * 2, D)
+        k, v = _card(rng, bf, B, 2, S, D), _card(rng, bf, B, 2, S, D)
+        calls.append((decode_attention, decode_attention_plain,
+                      (q, k, v, inp[4])))
+    outs = [fn(*inp) for fn, _, inp in calls]          # no sync between
+    for (_, plain, inp), got in zip(calls, outs):
+        _assert_close(got, plain(*inp), bf)
+    assert _counters_clean()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        outs = [fn(*inp) for fn, _, inp in calls]
+        ws_side = PA.arrival_counters(torch.device("cuda"), 0)
+    side.synchronize()
+    assert ws_side.data_ptr() != PA.arrival_counters(
+        torch.device("cuda"), 0).data_ptr()
+    for (_, plain, inp), got in zip(calls, outs):
+        _assert_close(got, plain(*inp), bf)
+    assert bool((ws_side == 0).all()) and _counters_clean()
+
+
+# slot counts around a warp's 32 lanes (the merge loads 32 slots' m and l
+# at a time)
+MERGE_SLOTS = [1, 31, 32, 33, 50]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", MERGE_SLOTS)
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_standalone_merge_matches_plain(card, dtype, D, n):
+    """lse_merge_partials (normalised output in dtype) against its plain
+    version on partials with empty slots and a row whose every slot is
+    empty (0 on both sides)."""
+    rng = np.random.default_rng(n * D)
+    B, KH, G = 3, 2, 3
+    acc = rng.standard_normal((B, KH, n, G, D)).astype(np.float32)
+    m = (3 * rng.standard_normal((B, KH, n, G))).astype(np.float32)
+    l = (np.abs(rng.standard_normal((B, KH, n, G))) + 0.5).astype(np.float32)
+    empty = rng.random((B, KH, n, G)) < 0.3
+    empty[0, 0, :, 0] = True
+    m[empty], l[empty], acc[empty] = -np.inf, 0.0, 0.0
+    acc, m, l = (torch.from_numpy(a).cuda() for a in (acc, m, l))
+    n0 = PA.lse_merge_partials.launches
+    got = PA.lse_merge_partials(acc, m, l, dtype)
+    torch.cuda.synchronize()
+    assert PA.lse_merge_partials.launches == n0 + 1
+    exp = PA.lse_merge_partials_plain(acc, m, l, dtype)
+    _assert_close(got, exp, dtype)
+    assert not got[0, 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", MERGE_SLOTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_standalone_merge_combined_partial_matches_plain(card, dtype, n):
+    """The merge's other mode, the combined unnormalised partial (acc, m,
+    l), as prefix_partial runs it over n prefix splits of one 64-key
+    tile, against the plain prefix partial."""
+    rng = np.random.default_rng(n + 7)
+    B, H, KH, D = 5, 12, 3, 64
+    Sp = n * 64 - 5
+    q = _card(rng, dtype, B, H, D)
+    kp, vp = _card(rng, dtype, KH, Sp, D), _card(rng, dtype, KH, Sp, D)
+    got = PF._launch(q, kp, vp, None, ((n, 64), (0, 0)))
+    torch.cuda.synchronize()
+    _assert_partial_close(got, q, kp, vp)
