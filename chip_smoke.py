@@ -130,6 +130,23 @@ From the root of a checkout. It
    and one float32 step of six reduced families (smollm, mixtral,
    rwkv6, jamba, the VLM with vision, whisper with frames) card == CPU.
    Training runs no hand-written kernel, as in the JAX package.
+14. (right after the training phase) the dry-run and its roofline
+   (``repro_torch.launch.dryrun``): ``--list`` (33 RUN, 7 SKIP); the meta
+   dry-run of smollm-360m train_4k, prefill_32k and decode_32k and of
+   mixtral-8x22b train_4k (half-expert, cut to 4 of its 56 layers) and
+   decode_32k (routed) on the one-pod mesh (16, 16), each record's H100
+   roofline row and count wall; then smollm-360m at full width and depth
+   on a 1 x 1 mesh on the card for three cuts of its cells (train 8 x
+   1024, prefill 1 x 32768 blockwise, decode 8 lanes against a 32768-token
+   cache through the split-K kernel): the dot FLOPs, dot bytes and
+   kernel counts on the card must equal the meta count of the same cut,
+   and each cut's step wall (CUDA events, median and spread of 5 after a
+   warm-up), model FLOPs, model-FLOP share, roofline bound over the wall,
+   peak memory against the argument bytes and one profiled step (device
+   busy share, launches) are printed; the split-K kernel at the decode
+   cut's shape is held against its plain version and timed beside its
+   bound and SDPA. The training phase's model-FLOP share also comes from
+   ``model_flops_for``.
 
 Any failed check exits non-zero. The last line is the JSON result.
 Exits non-zero with no result when no CUDA device is present or when
@@ -151,9 +168,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# NVIDIA H100 SXM data sheet: HBM3 rate and bf16 dense tensor-core rate
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
 SPIN_CYCLES = 2_000_000        # ~1 ms at the H100's 1.98 GHz boost clock
 SERVE_ARGS = ["--arch", "smollm-360m", "--instances", "2", "--requests",
               "16", "--max-context", "1024", "--device", "cuda"]
@@ -493,6 +507,7 @@ def merge_phase(torch, PA, flush, B=8):
     it: a lone launch cannot come near a bound of 0.08-3 microseconds
     (0.3-10 MB of partials), and the floor says how close it can come.
     Also read by time_split_merge.py for any tree."""
+    from repro_torch.analysis import counting
     g = torch.Generator(device="cuda").manual_seed(11)
     one, dst = torch.ones(1, device="cuda"), torch.empty(1, device="cuda")
     rows = []
@@ -505,8 +520,8 @@ def merge_phase(torch, PA, flush, B=8):
                 err = close(torch, name, PA.lse_merge_partials(acc, m, l, dt),
                             PA.lse_merge_partials_plain(acc, m, l, dt), tol)
                 out_bytes = B * H * D * (2 if dt == torch.bfloat16 else 4)
-                b_ms, b_by = bound((acc.numel() + 2 * m.numel()) * 4
-                                   + out_bytes, 0)
+                b_ms, b_by = counting.bound_ms(
+                    (acc.numel() + 2 * m.numel()) * 4 + out_bytes, 0)
                 floor_ms = time_ms(
                     torch, lambda: torch.add(one, one, out=dst), flush)
                 row = dict(
@@ -530,6 +545,7 @@ def paged_timed(torch, PA, flush, model, name, inp, masked):
     against the plain version, then kernel, plain version and SDPA on the
     pre-gathered KV timed beside the bound; ``masked``: the lanes with an
     all-zero (scratch) page-table row."""
+    from repro_torch.analysis import counting
     err = compare(torch, PA, name, inp, BF16)
     q, k, v, pt, ln = inp
     B, H, D = q.shape
@@ -568,14 +584,12 @@ def paged_timed(torch, PA, flush, model, name, inp, masked):
     kv_bytes = ntok * KH * D * 2 * 2
     other = (2 * B * H * D * 2 + B * 4
              + sum(math.ceil(n / PS) for n in lens) * 4)
-    bytes_ms = (kv_bytes + other) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 4 * ntok * H * D / BF16_FLOPS * 1e3
+    b_ms, b_by = counting.bound_ms(kv_bytes + other, 4 * ntok * H * D)
     row = dict(width=model, H=H, KH=KH, D=D, B=B, P=P, masked=masked,
                lens_max=max(lens), tokens=ntok,
                max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-               hbm_frac=max(bytes_ms, ops_ms) / kernel_ms,
+               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+               hbm_frac=b_ms / kernel_ms,
                n_splits=n_splits, pages_per_split=pps,
                grid_blocks=n_splits * B * KH)
     print("kernel: main path " + json.dumps(row))
@@ -597,22 +611,6 @@ def ragged(torch, g, n, hi):
     return lens.to(torch.int32)
 
 
-def visible_pairs(Sq, Skv, causal, window):
-    """(query, key) pairs the flash masks let through, per (lane, head)."""
-    n = 0
-    for qp in range(Sq):
-        hi = min(qp + 1, Skv) if causal else Skv
-        lo = max(0, qp - window + 1) if window else 0
-        n += max(0, hi - lo)
-    return n
-
-
-def bound(bytes_, flops):
-    b_ms = bytes_ / HBM_BYTES_PER_S * 1e3
-    f_ms = flops / BF16_FLOPS * 1e3
-    return max(b_ms, f_ms), ("bytes" if b_ms >= f_ms else "operations")
-
-
 def full_width_cases(torch, seed=3):
     """The library calls timed at full head widths, bf16, random tensors
     from ``seed`` (the same inputs whatever ran before): flash causal B 1
@@ -623,6 +621,7 @@ def full_width_cases(torch, seed=3):
     read once, outputs written once, only the valid KV of ragged lanes)
     and its flops (4 D per visible (query, key) pair). Also read by
     tools/time_launches.py."""
+    from repro_torch.analysis import counting
     g = torch.Generator(device="cuda").manual_seed(seed)
     bf = torch.bfloat16
     widths = (("smollm-360m", 15, 5, 64), ("mistral-7b", 32, 8, 128))
@@ -634,7 +633,8 @@ def full_width_cases(torch, seed=3):
         cases.append(dict(kind="flash", width=width, B=1, H=H, KH=KH, D=D,
                           window=win, args=(q, k, v),
                           bytes=2 * (2 * q.numel() + 2 * k.numel()),
-                          flops=4 * D * H * visible_pairs(S, S, True, win)))
+                          flops=4 * D * H * counting.visible_pairs(
+                              S, S, True, win)))
     for (width, H, KH, D), S in zip(widths, (2048, 8192)):
         B = 8
         q = rand(torch, g, bf, B, H, D)
@@ -667,12 +667,13 @@ def measure_row(torch, out, flush, kind, width, kernel, plain, library,
     yardstick ``library()`` against it too, then time all three beside
     the bound of ``bytes_`` and ``flops``; the row is printed and kept in
     ``out[kind]``."""
+    from repro_torch.analysis import counting
     err = close(torch, f"{kind} {width}", kernel(), plain(), BF16)
     # the yardstick may round P to bf16 before P V: a looser bound,
     # still tight enough to catch a wrong mask
     lib_err = close(torch, f"{kind} {width} yardstick", library(),
                     plain(), dict(atol=5e-2, rtol=0.0))
-    b_ms, b_by = bound(bytes_, flops)
+    b_ms, b_by = counting.bound_ms(bytes_, flops)
     row = dict(width=width, max_abs_err=err, library_err=lib_err,
                ms=time_ms(torch, kernel, flush),
                plain_ms=time_ms(torch, plain, flush, n=plain_n),
@@ -1922,9 +1923,9 @@ def tap_slot_kernels(torch, n_layers, tp, served):
         calls["partials"] += 1
         return part(q, k, v, pt, lens)
 
-    def merge_tap(*a):
+    def merge_tap(*a, **kw):
         calls["merge"] += 1
-        return merge(*a)
+        return merge(*a, **kw)
     A.paged_decode_partials, A.lse_merge_partials = part_tap, merge_tap
     try:
         yield
@@ -1946,6 +1947,7 @@ def slot_shapes(torch, PA, flush, served, tp):
     each lane count: shard 0's partials launch (its bound: its valid KV,
     q, the f32 partials written; yardstick: SDPA over the same keys) and
     the merge (bound: the partials read, the output written)."""
+    from repro_torch.analysis import counting
     g = torch.Generator(device="cuda").manual_seed(17)
     bf = torch.bfloat16
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1999,8 +2001,9 @@ def slot_shapes(torch, PA, flush, served, tp):
                 < ls[:, None])[:, None, None, :]
         kg, vg = kg.contiguous(), vg.contiguous()
         part_out = B * KH * ns * (H // KH) * (D + 2) * 4
-        b_ms, b_by = bound(ntok * KH * D * 2 * 2 + q.numel() * 2 + B * 4
-                           + part_out, 4 * ntok * H * D)
+        b_ms, b_by = counting.bound_ms(
+            ntok * KH * D * 2 * 2 + q.numel() * 2 + B * 4 + part_out,
+            4 * ntok * H * D)
         prow = dict(kernel="paged_decode_partials", B=B, H=H, KH=KH, D=D,
                     slot_page=PSs, P=P, lens=ls.tolist(), n_splits=ns,
                     dispatches=n,
@@ -2018,8 +2021,8 @@ def slot_shapes(torch, PA, flush, served, tp):
             (a - b).abs().nan_to_num().max().item() for a, b in zip(
                 PA.paged_decode_partials(q, k, v, pt, ls),
                 PA.paged_decode_partials_plain(q, k, v, pt, ls, ns, pps)))
-        mb_ms, mb_by = bound(acc.numel() * 4 + 2 * m.numel() * 4
-                             + B * H * D * 2, 0)
+        mb_ms, mb_by = counting.bound_ms(
+            acc.numel() * 4 + 2 * m.numel() * 4 + B * H * D * 2, 0)
         mrow = dict(kernel="lse_merge_partials", B=B, H=H, D=D,
                     slots=acc.shape[2], dispatches=n,
                     max_abs_err=(PA.lse_merge_partials(acc, m, l, bf).float()
@@ -3062,7 +3065,8 @@ def train_full_width(torch, T, tcli, bridge, api, dev, card,
     ``TrainConfig()``
     defaults (remat on) on ``synthetic_batches(seed=0)``, each step's
     loss, grad norm and lr, the wall of steps 3.. (median, spread),
-    tokens/s, the model-FLOP share (6 N T / (wall x 989e12)), peak memory
+    tokens/s, the model-FLOP share (``model_flops_for``: 6 N T, over
+    wall x 989e12), peak memory
     against the state's 16 bytes a parameter and one profiled step;
     then ``steps`` steps on the stream's first batch repeated, at the
     reference's single-batch overfit settings (lr 3e-3, warmup 5,
@@ -3080,15 +3084,18 @@ def train_full_width(torch, T, tcli, bridge, api, dev, card,
         torch.cuda.reset_peak_memory_stats()
     rows, walls, state, step = train_steps(
         torch, T, api, params, T.TrainConfig(), batches, dev, "stream")
+    from repro_torch.analysis.roofline import PEAK_FLOPS, model_flops_for
+    from repro_torch.configs import ShapeSpec
     n = api.n_active_params
     tokens = batch * seq
     wall = spread(walls[2:])
+    model_flops = model_flops_for(cfg, ShapeSpec("train", seq, batch,
+                                                 "train"), n)
     out = dict(arch=cfg.name, layers=cfg.n_layers, batch=batch, seq=seq,
                steps=steps, params=n, step_wall_s=wall,
                first_step_s=walls[0],
                tokens_per_s=tokens / wall["median"],
-               model_flop_share=6 * n * tokens / (wall["median"]
-                                                  * BF16_FLOPS),
+               model_flop_share=model_flops / (wall["median"] * PEAK_FLOPS),
                card=card)
     if dev == "cuda":
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3321,6 +3328,213 @@ def train_phase(torch, configs, bridge, zoo, dev="cuda", cfg=None,
         train_card_vs_cpu(torch, T, bridge, configs, zoo)
 
 
+# ---------------------------------------------------------------------------
+# the dry-run and its roofline
+# ---------------------------------------------------------------------------
+
+DRY_META_CELLS = (("smollm-360m", "train_4k"), ("smollm-360m", "prefill_32k"),
+                  ("smollm-360m", "decode_32k"), ("mixtral-8x22b", "train_4k"),
+                  ("mixtral-8x22b", "decode_32k"))
+# cuts of depth for meta cells whose whole count takes minutes on the
+# host (mixtral's half-expert train step loops over 256 shards a layer):
+# layers kept, of the config's
+DRY_META_LAYERS = {("mixtral-8x22b", "train_4k"): 4}
+DRY_REPS, DRY_WARMUP = 5, 1
+
+
+def dry_cuts():
+    """smollm-360m's cells cut to one H100: the training phase's batch,
+    one 32768-token prefill, and 8 lanes decoding against a full
+    32768-token cache (~10.7 GB of bf16 KV) through the split-K
+    kernel."""
+    from repro_torch.configs import ShapeSpec
+    return (ShapeSpec("train_8x1024", 1024, 8, "train"),
+            ShapeSpec("prefill_1x32768", 32768, 1, "prefill"),
+            ShapeSpec("decode_8x32768", 32768, 8, "decode"))
+
+
+def dry_list(dry):
+    """``--list`` through the port: 33 RUN and 7 SKIP lines."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(dry.main(["--list"]) == 0, "dryrun --list failed")
+    lines = buf.getvalue().splitlines()
+    runs = sum(" RUN" in x for x in lines)
+    skips = sum(" SKIP: " in x for x in lines)
+    print(f"dryrun: --list {len(lines)} cells, {runs} RUN, {skips} SKIP")
+    check((runs, skips) == (33, 7), f"dryrun --list: {runs} RUN, {skips} "
+          "SKIP, expected 33 and 7")
+
+
+def dry_meta_cells(dry, configs):
+    """The meta dry-run of DRY_META_CELLS on the one-pod mesh (16, 16):
+    each record's roofline row and its count wall."""
+    import dataclasses
+    from repro_torch.analysis import roofline_report
+    for arch, shape in DRY_META_CELLS:
+        cfg = configs.get_config(arch)
+        keep = DRY_META_LAYERS.get((arch, shape))
+        if keep:
+            cfg = dataclasses.replace(cfg, n_layers=keep)
+        t0 = time.perf_counter()
+        rec = dry.run_cell(cfg, shape)
+        wall = time.perf_counter() - t0
+        cnt = rec["count"]
+        check(cnt["dot_flops"] > 0 and rec["memory"]["argument_bytes"] > 0,
+              f"dryrun {arch} {shape}: nothing counted")
+        out = dict(roofline_report.rows_from([rec])[0], mesh=rec["mesh"],
+                   layers=f"{cfg.n_layers} of "
+                   f"{configs.get_config(arch).n_layers}",
+                   count_wall_s=wall, dot_flops=cnt["dot_flops"],
+                   dot_bytes=cnt["dot_bytes"],
+                   collective_bytes=cnt["collective_bytes"],
+                   kernels={k: v["calls"] for k, v in cnt["kernels"].items()},
+                   extra=rec["extra"])
+        print("dryrun: meta " + json.dumps(out))
+
+
+def dry_profile(torch, cell):
+    """One more step of ``cell`` under torch.profiler (device activity):
+    its wall, device busy ms and share, launches and the split-K
+    kernel's device time a call. Instrumentation only."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cell.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = device_kernels(torch, prof)
+    busy_ms = sum(k[0] for k in kernels) / 1e3
+    if busy_ms == 0.0:
+        return "not measured (the profiler recorded no device time)"
+    split = [k for k in kernels if "dense_split_kernel" in k[2]]
+    return dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms,
+                device_busy_share=busy_ms / (wall * 1e3),
+                launches=sum(k[1] for k in kernels),
+                split_k_ms_a_call=(split[0][0] / 1e3 / split[0][1]
+                                   if split else None),
+                top=[dict(kernel=k[2][:60], ms=k[0] / 1e3, calls=k[1])
+                     for k in kernels[:5]])
+
+
+def dry_decode_kernel(torch, cell, flush):
+    """The split-K kernel at the decode cut's shape (first layer's cache
+    through the model layout's transposed views, every lane full), held
+    against its plain version and timed beside its bound and SDPA."""
+    DAK = importlib.import_module("repro_torch.kernels.decode_attention")
+    from repro_torch.analysis import counting
+    cfg = cell.cfg
+    k, v = (cell.args[1]["p0"][n][0] for n in ("k", "v"))
+    B, S, KH, D = k.shape
+    g = torch.Generator(device="cuda").manual_seed(5)
+    k.copy_(rand(torch, g, k.dtype, *k.shape))
+    v.copy_(rand(torch, g, v.dtype, *v.shape))
+    q = rand(torch, g, k.dtype, B, cfg.n_heads, D)
+    lens = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    flops, bytes_ = counting.decode_cost(q, kt, lens)
+    G = cfg.n_heads // KH
+    kg, vg = kt.repeat_interleave(G, 1), vt.repeat_interleave(G, 1)
+    return measure_row(
+        torch, {}, flush, "decode", "smollm-360m dry-run decode cut",
+        lambda: DAK.decode_attention(q, kt, vt, lens),
+        lambda: DAK.decode_attention_plain(q, kt, vt, lens),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], kg, vg)[:, :, 0],
+        bytes_, flops, plain_n=3, library_n=10)
+
+
+def dry_card_cut(torch, dry, mesh_mod, cut, card, cfg="smollm-360m",
+                 dev="cuda"):
+    """One cut of ``cfg`` (full-width smollm-360m) on a 1 x 1 mesh on the
+    card: the dot FLOPs, dot bytes and kernels counted on the card must
+    equal the meta count of the same cut exactly; then the step's wall
+    (CUDA events, DRY_REPS after DRY_WARMUP, without the counter), the
+    model-FLOP share, the roofline bound over the wall and peak memory
+    against the argument bytes. Rehearses on the CPU with ``dev="cpu"``
+    and a reduced ``cfg`` (host clock, no memory figures; the split-K
+    launch count is then bumped by a wrapper of the caller's)."""
+    from repro_torch.analysis import roofline
+    DAK = importlib.import_module("repro_torch.kernels.decode_attention")
+    meta = dry.count_cell(dry.build_cell(
+        cfg, cut, mesh=mesh_mod.make_mesh(1, 1, ["meta"]), device="meta"))
+    cell = dry.build_cell(cfg, cut, mesh=mesh_mod.make_mesh(1, 1, [dev]),
+                          device=dev)
+    sync(torch, dev)
+    DAK.decode_attention.launches = 0
+    t0 = time.perf_counter()
+    c = dry.count_cell(cell)
+    rec = dry.record(cell, c, time.perf_counter() - t0)
+    got = (c.dot_flops, c.dot_bytes, c.kernels)
+    want = (meta.dot_flops, meta.dot_bytes, meta.kernels)
+    check(got == want, f"dryrun {cut.name}: card count {got[:2]} != meta "
+          f"count {want[:2]}")
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for _ in range(DRY_WARMUP):
+        cell.step()
+    walls = []
+    for _ in range(DRY_REPS):
+        if dev != "cuda":
+            t0 = time.perf_counter()
+            cell.step()
+            walls.append(time.perf_counter() - t0)
+            continue
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        cell.step()
+        b.record()
+        b.synchronize()
+        walls.append(a.elapsed_time(b) / 1e3)
+    launches = DAK.decode_attention.launches
+    steps = 1 + DRY_WARMUP + DRY_REPS
+    want_launches = (cell.cfg.n_layers * steps if cut.kind == "decode"
+                     else 0)
+    check(launches == want_launches, f"dryrun {cut.name}: {launches} "
+          f"split-K launches, expected {want_launches}")
+    wall = spread(walls)
+    prof = dry_profile(torch, cell) if dev == "cuda" else "not measured"
+    mf = rec["model"]["model_flops"]
+    t = roofline.roofline_from_record(rec, mf)
+    out = dict(cut=cut.name, B=cut.global_batch, S=cut.seq_len,
+               kind=cut.kind, dot_flops=c.dot_flops, dot_bytes=c.dot_bytes,
+               kernels=c.kernels, count_equal_to_meta=True,
+               split_k_launches=launches, step_wall_s=wall,
+               model_flops=mf,
+               model_flop_share=mf / (wall["median"] * roofline.PEAK_FLOPS),
+               useful=t.useful_ratio, roofline_bound_s=t.step_time_s,
+               roofline_bound_by=t.dominant,
+               roofline_share=t.step_time_s / wall["median"],
+               peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                         if dev == "cuda" else "not measured"),
+               argument_gib=rec["memory"]["argument_bytes"] / 2 ** 30,
+               profile=prof, card=card)
+    print("dryrun: card " + json.dumps(out))
+    if dev == "cuda" and cut.kind == "decode":
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        out["kernel_row"] = dry_decode_kernel(torch, cell, flush)
+    del cell
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_phase(torch, configs):
+    """``--list`` through the port, the meta dry-run of DRY_META_CELLS
+    and the three smollm-360m cuts on the card (``dry_card_cut``)."""
+    from repro_torch.launch import dryrun as dry
+    from repro_torch.launch import mesh as mesh_mod
+    card = card_line()
+    dry_list(dry)
+    dry_meta_cells(dry, configs)
+    for cut in dry_cuts():
+        dry_card_cut(torch, dry, mesh_mod, cut, card)
+    print(f"dryrun: card {card}")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3409,6 +3623,9 @@ def main() -> None:
     print(f"train: phase took {time.perf_counter() - t0:.1f}s; "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
           "allocated after it")
+    t0 = time.perf_counter()
+    dryrun_phase(torch, configs)
+    print(f"dryrun: phase took {time.perf_counter() - t0:.1f}s")
     reference_phase(torch, configs, bridge, zoo, Engine, EngineConfig,
                     Request)
     t0 = time.perf_counter()

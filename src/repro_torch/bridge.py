@@ -12,7 +12,9 @@ stack leaf stacked over [n_groups, ...], and page pools
 random parameters with the shapes and init kinds of the JAX package's
 specs (``fan_in`` / ``ones`` / ``zeros`` / normal); the values differ
 from JAX's.
-``param_specs`` also carries each leaf's logical sharding axes, copied
+``abstract_params`` gives the same tree as empty meta tensors (the
+dry-run's parameters), ``logical_axes`` and ``param_count`` its axes and
+size. ``param_specs`` also carries each leaf's logical sharding axes, copied
 from the JAX package's specs, for ``launch/sharding.py``, and the dtype
 of a leaf pinned to one whatever the model's (an MoE router and a mamba
 layer's A_log and D are float32 even in a bfloat16 model, as the JAX
@@ -226,6 +228,37 @@ def param_bytes(cfg) -> int:
         return sum(walk(v) for v in tree.values())
 
     return walk(param_specs(cfg))
+
+
+def _walk(tree, fn):
+    if isinstance(tree, Spec):
+        return fn(tree)
+    return {k: _walk(v, fn) for k, v in tree.items()}
+
+
+def abstract_params(cfg, device="meta") -> Pytree:
+    """The parameters as empty tensors in each leaf's shape and dtype, on
+    ``device`` (meta: shapes only, nothing allocated; the reference's
+    ``abstract_params`` of ShapeDtypeStructs)."""
+    return _walk(param_specs(cfg), lambda s: torch.empty(
+        s.shape, dtype=_leaf_dtype(s, cfg), device=device))
+
+
+def logical_axes(cfg) -> Pytree:
+    """Every leaf's logical axes (the reference's ``logical_axes``)."""
+    return _walk(param_specs(cfg), lambda s: s.axes)
+
+
+def param_count(cfg) -> int:
+    """Parameters in all leaves (the reference's ``param_count``)."""
+    total = 0
+
+    def leaf(s):
+        nonlocal total
+        total += math.prod(s.shape)
+
+    _walk(param_specs(cfg), leaf)
+    return total
 
 
 DRAW_ELEMS = 1 << 31    # elements of the largest leaf drawn in one piece

@@ -15,8 +15,9 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 def on_cuda(fn: str, q: torch.Tensor) -> bool:
     """True for a CUDA tensor, False for a CPU one (the plain version's
-    case); raise for any other device."""
-    if q.device.type == "cpu":
+    case) or a meta one (shapes only: the wrapper returns an empty output
+    of its kernel's shape); raise for any other device."""
+    if q.device.type in ("cpu", "meta"):
         return False
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: no kernel for {q.device.type} tensors")

@@ -21,11 +21,13 @@ kernel's split for split); on the card the kernel uses its own plan,
 since the merged output does not depend on the split beyond f32
 rounding.
 
-``decode_attention`` takes the plain version only for tensors that lie on
-the CPU. For CUDA tensors it launches the kernel or raises; it never falls
-back. ``decode_attention.launches`` counts calls that launched the kernel
-(one launch a call, whatever the split count), never plain-version
-calls.
+``decode_attention`` takes the plain version only for tensors that lie
+on the CPU. For CUDA tensors it launches the kernel or raises; it never
+falls back. For meta tensors it returns an empty output. While an
+``analysis.counting.Counter`` is active, each call counts the kernel's
+work by its formula (``counting.decode_cost``) on every device.
+``decode_attention.launches`` counts calls that launched the kernel (one
+launch a call, whatever the split count), never plain-version calls.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from typing import Tuple
 
 import torch
 
+from ..analysis import counting
 from . import build, checks
 from .paged_attention import arrival_counters, tile_tokens
 
@@ -180,8 +183,14 @@ def decode_attention(q, k, v, lens, *, n_splits: int = 8):
     int32. Returns [B, H, D] in q's dtype. ``n_splits``: the Pallas
     kernel's split count, followed by the plain version; the card's
     kernel uses ``plan_for``."""
+    if counting.ACTIVE is not None:
+        counting.ACTIVE.kernel("decode_attention",
+                               counting.decode_cost(q, k, lens))
     if not checks.on_cuda("decode_attention", q):
-        return decode_attention_plain(q, k, v, lens, n_splits=n_splits)
+        if q.device.type == "meta":
+            return torch.empty_like(q)
+        with counting.paused():
+            return decode_attention_plain(q, k, v, lens, n_splits=n_splits)
     _check_cuda(q, k, v, lens)
     return _launch(q, k, v, lens, plan_for(q, k))
 

@@ -14,9 +14,12 @@ wgmma; f32 on the CUDA cores; only the key tiles that hold a visible key,
 longest query tiles first, strided reads of either layout).
 
 ``flash_attention`` takes the plain version only for tensors that lie on
-the CPU. For CUDA tensors it launches the kernel or raises; it never falls
-back. ``flash_attention.launches`` counts kernel launches, never
-plain-version calls.
+the CPU. For CUDA tensors it launches the kernel or raises; it never
+falls back. For meta tensors it returns an empty output. While an
+``analysis.counting.Counter`` is active, each call counts the kernel's
+work by its formula (``counting.flash_cost``) on every device.
+``flash_attention.launches`` counts kernel launches, never plain-version
+calls.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..analysis import counting
 from . import build, checks
 
 NEG_INF = float("-inf")
@@ -134,9 +138,15 @@ def _run_into(out, q, k, v, causal: bool, window: int, kv_len) -> None:
     out [B, H, Sq, D]: any of them may be a strided view with the last dim
     contiguous (``ops`` passes the model layout transposed)."""
     kv_len = _check_args(q, k, v, window, kv_len)
+    if counting.ACTIVE is not None:
+        counting.ACTIVE.kernel("flash_attention", counting.flash_cost(
+            q, k, causal, window, kv_len))
     if not checks.on_cuda("flash_attention", q):
-        out.copy_(flash_attention_plain(q, k, v, causal=causal,
-                                        window=window, kv_len=kv_len))
+        if q.device.type == "meta":
+            return
+        with counting.paused():
+            out.copy_(flash_attention_plain(q, k, v, causal=causal,
+                                            window=window, kv_len=kv_len))
         return
     _check_cuda(q, k, v, out)
     B, H, Sq, D = q.shape

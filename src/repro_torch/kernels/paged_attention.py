@@ -21,11 +21,16 @@ live on the card: reading them would cost a host sync on every layer.
 
 ``paged_decode_attention`` takes the plain version only for tensors that
 lie on the CPU. For CUDA tensors it launches the kernel or raises; it
-never falls back. ``paged_decode_attention.launches`` counts calls that
-went through the kernel, one launch each whatever the split count.
-Plain-version calls never count. ``paged_decode_partials`` (the kernel's
-partials, unmerged) and ``lse_merge_partials`` (the standalone merge, one
-warp a row) serve the slot shards of a tensor-parallel pool.
+never falls back. For meta tensors it, and the two calls below, return
+empty outputs. While an ``analysis.counting.Counter`` is active, each
+call of the three counts its kernel's work by its formula
+(``counting.paged_cost``, ``partials_cost``, ``merge_cost``) on every
+device.
+``paged_decode_attention.launches`` counts calls that went through the
+kernel, one launch each whatever the split count. Plain-version calls
+never count. ``paged_decode_partials`` (the kernel's partials, unmerged)
+and ``lse_merge_partials`` (the standalone merge, one warp a row) serve
+the slot shards of a tensor-parallel pool.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from typing import Tuple
 
 import torch
 
+from ..analysis import counting
 from . import build
 from .checks import DTYPE_CODE as _DTYPE_CODE
 from .checks import GROUPS, HEAD_DIMS  # the built (G, D)
@@ -193,9 +199,16 @@ def plan_for(q, k_pages, page_table) -> Tuple[int, int]:
 def paged_decode_attention(q, k_pages, v_pages, page_table, lens):
     """Decode attention over the shared page pool; see the module doc.
     Same arguments and result as ``paged_decode_attention_plain``."""
+    if counting.ACTIVE is not None:
+        counting.ACTIVE.kernel("paged_decode_attention",
+                               counting.paged_cost(q, k_pages, page_table,
+                                                   lens))
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if q.device.type == "cpu":
-        return paged_decode_attention_plain(q, k_pages, v_pages, page_table,
-                                            lens)
+        with counting.paused():
+            return paged_decode_attention_plain(q, k_pages, v_pages,
+                                                page_table, lens)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: no kernel for "
                          f"{q.device.type} tensors")
@@ -274,9 +287,20 @@ def paged_decode_partials(q, k_pages, v_pages, page_table, lens):
     [B, KH, ns, G, D], m and l [B, KH, ns, G], for the kernel's own split
     plan (``plan_for``); on CPU tensors the plain version with one split.
     Same arguments as ``paged_decode_attention``."""
+    if counting.ACTIVE is not None:
+        counting.ACTIVE.kernel("paged_decode_partials",
+                               counting.partials_cost(q, k_pages, page_table,
+                                                      lens))
+    if q.device.type == "meta":
+        B, H, D = q.shape
+        KH = k_pages.shape[2]
+        return tuple(torch.empty((B, KH, 1, H // KH) + tail,
+                                 dtype=torch.float32, device="meta")
+                     for tail in ((D,), (), ()))
     if q.device.type == "cpu":
-        return paged_decode_partials_plain(q, k_pages, v_pages, page_table,
-                                           lens)
+        with counting.paused():
+            return paged_decode_partials_plain(q, k_pages, v_pages,
+                                               page_table, lens)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_partials: no kernel for "
                          f"{q.device.type} tensors")
@@ -316,14 +340,22 @@ def lse_merge_partials_plain(acc, m, l, dtype):
     return o.reshape(B, KH * G, D).to(dtype)
 
 
-def lse_merge_partials(acc, m, l, dtype):
+def lse_merge_partials(acc, m, l, dtype, slots=None):
     """Merge the f32 partials of every slot (splits of one or more shards,
     concatenated along axis 2): acc [B, KH, n, G, D], m and l
     [B, KH, n, G] -> [B, KH * G, D] in ``dtype``, in one launch of
     ``lse_merge_kernel`` (one warp a row) on a card; the plain version on
-    CPU tensors."""
+    CPU tensors. ``slots`` only sets the n a counter charges
+    (``counting.merge_cost``)."""
+    if counting.ACTIVE is not None:
+        counting.ACTIVE.kernel("lse_merge_partials",
+                               counting.merge_cost(acc, dtype, slots))
+    if acc.device.type == "meta":
+        B, KH, _, G, D = acc.shape
+        return torch.empty((B, KH * G, D), dtype=dtype, device="meta")
     if acc.device.type == "cpu":
-        return lse_merge_partials_plain(acc, m, l, dtype)
+        with counting.paused():
+            return lse_merge_partials_plain(acc, m, l, dtype)
     if acc.device.type != "cuda":
         raise ValueError(f"lse_merge_partials: no kernel for "
                          f"{acc.device.type} tensors")

@@ -22,7 +22,10 @@ joined before the merge.
 
 ``prefix_partial`` and ``prefix_attention`` take the plain version only
 for tensors that lie on the CPU. For CUDA tensors they launch the kernel
-or raise; they never fall back. ``prefix_partial.launches`` counts the
+or raise; they never fall back. For meta tensors they return empty
+outputs. While an ``analysis.counting.Counter`` is active, each call
+counts the kernels' work by its formula (``counting.prefix_cost``) on
+every device. ``prefix_partial.launches`` counts the
 calls of either that launched the prefix kernel, never plain-version
 calls.
 """
@@ -35,6 +38,7 @@ from typing import Tuple
 
 import torch
 
+from ..analysis import counting
 from . import build, checks
 from . import decode_attention as _dec
 from .decode_attention import NEG_INF, lse_merge
@@ -243,8 +247,17 @@ def prefix_partial(q, kp, vp, *, block_k: int = 128):
     ``block_k``: the least number of prefix keys one block takes."""
     if block_k < 1:
         raise ValueError(f"prefix_partial: block_k {block_k} < 1")
+    if counting.ACTIVE is not None:
+        counting.ACTIVE.kernel("prefix_partial", counting.prefix_cost(q, kp))
     if not checks.on_cuda("prefix_partial", q):
-        return prefix_partial_plain(q, kp, vp)
+        if q.device.type == "meta":
+            B, H, D = q.shape
+            G = H // kp.shape[0]
+            return tuple(torch.empty(B, kp.shape[0], G, n,
+                                     dtype=torch.float32, device="meta")
+                         for n in (D, 1, 1))
+        with counting.paused():
+            return prefix_partial_plain(q, kp, vp)
     _check_cuda(q, kp, vp)
     return _launch(q, kp, vp, None, plan_for(q, kp, None, block_k))
 
@@ -257,8 +270,14 @@ def prefix_attention(q, kp, vp, ks, vs, lens, *, block_k: int = 128):
     over [prefix ++ suffix]. Returns [B, H, D] in q's dtype."""
     if block_k < 1:
         raise ValueError(f"prefix_attention: block_k {block_k} < 1")
+    if counting.ACTIVE is not None:
+        counting.ACTIVE.kernel("prefix_attention",
+                               counting.prefix_cost(q, kp, ks, lens))
     if not checks.on_cuda("prefix_attention", q):
-        return prefix_attention_plain(q, kp, vp, ks, vs, lens)
+        if q.device.type == "meta":
+            return torch.empty_like(q)
+        with counting.paused():
+            return prefix_attention_plain(q, kp, vp, ks, vs, lens)
     _check_cuda(q, kp, vp, (ks, vs, lens))
     return _launch(q, kp, vp, (ks, vs, lens),
                    plan_for(q, kp, ks, block_k))[0]

@@ -14,31 +14,46 @@ code puts the shards on k cards when k are visible.
 The collectives that GSPMD inserts in the reference are explicit calls
 here, ``all_reduce`` and ``all_gather``. Both gather the parts to shard
 0's device, combine them in shard order and hand every shard its own
-result, so a run on one device gives the same bits as a run on k.
+result, so a run on one device gives the same bits as a run on k. While
+an ``analysis.counting.Counter`` is active, each call reports its kind
+and bytes to it.
+
+A mesh may also carry named axes of any sizes, as the reference's
+production meshes do: ``make_production_mesh`` gives ("data", "model")
+(16, 16), ("pod", "data", "model") (2, 16, 16) and, with the expert axis,
+("data", "expert", "model") (16, 8, 2) and ("pod", "data", "expert",
+"model") (2, 16, 8, 2), over meta devices: the dry-run's meshes, which
+hold shapes and run no kernel.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-AXES = ("data", "model")
-
+from ..analysis import counting
 
 @dataclass(frozen=True)
 class Mesh:
-    """A serve submesh: ``devices[s]`` holds shard s. ``data`` > 1 makes
-    a ("data", "model") = (data, len(devices) / data) mesh, devices in
-    row-major order (``make_mesh``); only the half-expert MoE path
-    (``models/moe_a2a.py``) takes one, a serve submesh has data 1."""
+    """``devices[s]`` holds shard s; ``axes`` names the mesh's axes and
+    their sizes, devices in row-major order. A serve submesh is
+    ("data", "model") = (1, chips) (``make_serve_mesh``); the half-expert
+    MoE path (``models/moe_a2a.py``) also takes data > 1 (``make_mesh``)
+    and the dry-run the production meshes (``make_production_mesh``)."""
     devices: Tuple[torch.device, ...]
-    data: int = 1
+    axes: Tuple[Tuple[str, int], ...]
+
+    def __post_init__(self):
+        if math.prod(n for _, n in self.axes) != len(self.devices):
+            raise ValueError(f"mesh axes {self.axes} do not cover "
+                             f"{len(self.devices)} devices")
 
     @property
     def shape(self) -> dict:
-        return dict(zip(AXES, (self.data, len(self.devices) // self.data)))
+        return dict(self.axes)
 
     @property
     def size(self) -> int:
@@ -97,7 +112,7 @@ def make_serve_mesh(chips: int, devices: Optional[Sequence] = None,
     if chips < 1:
         raise ValueError(f"chips must be >= 1, got {chips}")
     devs = _take(chips, devices, platform, "a serve submesh")
-    return Mesh(tuple(devs[:chips]))
+    return Mesh(tuple(devs[:chips]), (("data", 1), ("model", chips)))
 
 
 def make_mesh(data: int, model: int, devices: Optional[Sequence] = None,
@@ -108,19 +123,46 @@ def make_mesh(data: int, model: int, devices: Optional[Sequence] = None,
     if data < 1 or model < 1:
         raise ValueError(f"mesh shape ({data}, {model})")
     devs = _take(data * model, devices, platform, "a mesh")
-    return Mesh(tuple(devs[:data * model]), data)
+    return Mesh(tuple(devs[:data * model]), (("data", data), ("model", model)))
 
 
-def row_mesh(mesh: Mesh, r: int) -> Mesh:
-    """The "model" axis of data row r: its own 1 x model mesh."""
-    m = mesh.shape["model"]
-    return Mesh(mesh.devices[r * m:(r + 1) * m])
+def named_mesh(axes: Dict[str, int], devices: Sequence) -> Mesh:
+    """A mesh of named axes ``axes`` (name -> size, in row-major order)
+    over ``devices`` (a list may repeat a device)."""
+    devs = tuple(torch.device(d) for d in devices)
+    return Mesh(devs, tuple(axes.items()))
 
 
-def column_mesh(mesh: Mesh, c: int) -> Mesh:
-    """The "data" axis of model column c, as a 1 x data mesh (the
-    collectives of ``all_gather`` run over it in data order)."""
-    return Mesh(mesh.devices[c::mesh.shape["model"]])
+def make_production_mesh(*, multi_pod: bool = False,
+                         expert_axis: bool = False,
+                         device="meta") -> Mesh:
+    """The reference's production meshes (its ``make_production_mesh``),
+    in its shapes and axis orders: ("data", "model") = (16, 16), with
+    ``multi_pod`` ("pod", "data", "model") = (2, 16, 16), the "pod" axis
+    pure data parallelism; ``expert_axis`` re-slices the 16-way model
+    axis into ("expert", "model") = (8, 2). Every shard is ``device``
+    (meta: shapes only, for the dry-run)."""
+    if expert_axis:
+        names = ("data", "expert", "model")
+        sizes = (16, 8, 2)
+    else:
+        names, sizes = ("data", "model"), (16, 16)
+    if multi_pod:
+        names, sizes = ("pod",) + names, (2,) + sizes
+    return named_mesh(dict(zip(names, sizes)),
+                      [device] * math.prod(sizes))
+
+
+def make_host_mesh(n_instances: int = 1, devices: Optional[Sequence] = None,
+                   platform: str = "cpu") -> Mesh:
+    """The reference's small test mesh ("data", "model") = (n, 1): on the
+    CPU n = n_instances shards that share the CPU; on cards, as many of
+    them as are visible, at most n_instances (the reference takes
+    min(n_instances, its device count))."""
+    if devices is None and platform != "cpu":
+        devices = visible_devices(platform)
+    n = n_instances if devices is None else min(n_instances, len(devices))
+    return make_mesh(n, 1, devices, platform)
 
 
 def partition_devices(chips_per_instance: Sequence[int],
@@ -164,6 +206,9 @@ def all_reduce(parts: Sequence[torch.Tensor], mesh: Mesh
     """The sum of every shard's part, on every shard: the parts are
     gathered to shard 0's device and added in shard order in float32,
     then cast back to the parts' dtype and broadcast."""
+    if counting.ACTIVE is not None:
+        counting.ACTIVE.collective("all-reduce", counting.nbytes(parts[0]),
+                                   len(parts))
     dev0 = mesh.devices[0]
     acc = parts[0].to(dev0, dtype=torch.float32, copy=True)
     for p in parts[1:]:
@@ -183,4 +228,7 @@ def all_gather(parts: Sequence[torch.Tensor], dim: int, mesh: Mesh
                ) -> List[torch.Tensor]:
     """The shards' parts concatenated along ``dim`` in shard order, on
     every shard."""
+    if counting.ACTIVE is not None:
+        counting.ACTIVE.collective(
+            "all-gather", sum(counting.nbytes(p) for p in parts), len(parts))
     return broadcast(gather(parts, dim, mesh), mesh)

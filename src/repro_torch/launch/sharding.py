@@ -16,10 +16,12 @@ specs keep one entry per dim). The rules for "experts", "expert_ff",
 "expert_in", "halfexpert" and "expert_ff_fsdp" are the reference's and
 lay out the MoE leaves; "inner" lays out the Mamba leaves.
 
-``train_policy`` and ``dp_spec`` give the training state's and the
-batch's specs on a ("data", "model") mesh, as the reference's do; the
-port trains on one device, and sharded training over a mesh is not
-ported.
+``train_policy``, ``dp_spec``, ``batch_pspecs``, ``cache_pspecs`` and
+``q8_scale_pspec`` give the training state's, the batch's and the decode
+cache's specs on any mesh of the reference's axes ("pod", "data",
+"expert", "model"), as the reference's functions do; the dry-run
+(``launch/dryrun.py``) reads them. The port trains on one device, and
+sharded training over a mesh is not ported.
 
 On a serve submesh ("data", "model") = (1, tp) only the "model" axis
 splits anything: ``shard_params`` cuts every leaf along the dims whose
@@ -106,6 +108,79 @@ def dp_spec(mesh: Mesh, batch: int
                 and batch % axis_size(mesh, axes) == 0:
             return axes[0] if len(axes) == 1 else tuple(axes)
     return None
+
+
+def batch_pspecs(batch_specs: Dict[str, Any], mesh: Mesh
+                 ) -> Dict[str, PSpec]:
+    """PartitionSpecs of a step's inputs (the reference's
+    ``batch_shardings``): a leaf's leading dim over ``dp_spec``, the
+    others replicated; a scalar ()."""
+    out = {}
+    for name, s in batch_specs.items():
+        shape = tuple(s.shape)
+        out[name] = (() if shape == () else
+                     (dp_spec(mesh, shape[0]),) + (None,) * (len(shape) - 1))
+    return out
+
+
+_SEQ_PREFS = (("pod", "data", "model"), ("data", "model"), ("model",),
+              ("data",))
+
+
+def _cache_pspec(name: str, shape: Tuple[int, ...], mesh: Mesh) -> PSpec:
+    """PartitionSpec of one decode-cache leaf by its name (the
+    reference's ``_cache_pspec``): k / v / ck / cv [G, B, S, KH, D] put
+    the batch over ``dp_spec``, the kv heads over "model" when it divides
+    them (head-wise TP), and the sequence over the first of _SEQ_PREFS
+    whose axes are unused and divide it (distributed flash-decoding);
+    conv [G, B, W, ed], ssm [G, B, ed, N] and state [G, B, H, Dh, Dh]
+    put their inner or head dim over "model" when it divides; anything
+    else (shift, shift_c) is split over the batch only."""
+    used: set = set()
+    bspec = dp_spec(mesh, shape[1])
+    if bspec is not None:
+        used.update(_norm(bspec))
+    tp = axis_size(mesh, "model")
+    if name in ("k", "v", "ck", "cv"):
+        S, KH = shape[2], shape[3]
+        hspec = None
+        if "model" in mesh.shape and "model" not in used \
+                and KH % tp == 0 and tp > 1:
+            hspec = "model"
+            used.add("model")
+        sspec = None
+        for axes in _SEQ_PREFS:
+            if all(a in mesh.shape for a in axes) \
+                    and not (set(axes) & used) \
+                    and S % axis_size(mesh, axes) == 0:
+                sspec = axes[0] if len(axes) == 1 else tuple(axes)
+                break
+        return (None, bspec, sspec, hspec, None)
+    if name == "conv":
+        return (None, bspec, None, "model" if shape[3] % tp == 0 else None)
+    if name == "ssm":
+        return (None, bspec, "model" if shape[2] % tp == 0 else None, None)
+    if name == "state":
+        return (None, bspec, "model" if shape[2] % tp == 0 else None,
+                None, None)
+    return (None, bspec) + (None,) * (len(shape) - 2)
+
+
+def cache_pspecs(cache_specs: Pytree, mesh: Mesh) -> Pytree:
+    """``_cache_pspec`` of every leaf of a ``cache_specs`` tree (the
+    reference's ``cache_shardings``)."""
+    return {k: (cache_pspecs(v, mesh) if isinstance(v, dict)
+                else _cache_pspec(k, tuple(v.shape), mesh))
+            for k, v in cache_specs.items()}
+
+
+def q8_scale_pspec(pspec: PSpec, ndim: int) -> PSpec:
+    """The PartitionSpec of an int8 moment's float32 scale, shape
+    shape[:-1] + (1,), from its parameter's ``pspec``: the last dim's
+    entry goes only when the spec reaches it (the reference's
+    ``q8_sharding`` in ``launch/dryrun.py``); the int8 values keep
+    ``pspec``."""
+    return pspec[:-1] if len(pspec) == ndim else pspec
 
 
 def serve_policy(mesh: Mesh, param_bytes: int,

@@ -377,8 +377,9 @@ def paged_attention_tp(qs, pages, page_table, lens, plan, H: int):
             for s in range(tp)]
         acc, m, l = (M.gather([pt[i] for pt in parts], 2, plan.mesh)
                      for i in range(3))
-        o = M.broadcast(lse_merge_partials(acc, m, l, qs[0].dtype),
-                        plan.mesh)
+        # counted as one slot a shard, on every device (merge_cost)
+        o = M.broadcast(lse_merge_partials(acc, m, l, qs[0].dtype,
+                                           slots=tp), plan.mesh)
         out = []
         for s in range(tp):
             lo, n = heads_range(plan, s, H)

@@ -48,6 +48,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..analysis import counting
 from ..launch import mesh as M
 from .attention import attention, decode_attention, extend_attention, \
     mixed_paged_attention, mixed_paged_attention_tp, paged_attention, \
@@ -358,9 +359,24 @@ def _routed(p, cfg, x, first: int = 0):
     each expert hit runs one product over its pairs on its own weights,
     and the results go back to their pairs before the gate-weighted sum
     over k. The per-expert pair counts are read on the host (one sync).
-    No expert weight is gathered. Returns [T, d]."""
+    No expert weight is gathered. Returns [T, d].
+
+    Meta tensors have no counts to read: the router runs, the expert
+    products are counted by the T x K identity (``counting.routed_cost``;
+    min(E, T x K) experts counted as hit; the layer must hold every
+    expert) and the output is empty; ``MOE_STATS`` is left alone."""
     topw, tope = _route(p, cfg, x)                                # [T, K]
     T, K = tope.shape
+    if x.device.type == "meta":
+        e_loc, d, f = p["wg"].shape
+        if e_loc != cfg.n_experts:
+            raise NotImplementedError("the T x K identity counts a layer "
+                                      "that holds every expert")
+        if counting.ACTIVE is not None:
+            counting.ACTIVE.add_dots(*counting.routed_cost(
+                T, K, d, f, min(e_loc, T * K), x.dtype, p["wg"].dtype),
+                n=3 * min(e_loc, T * K))
+        return x.new_empty((T, x.shape[-1]))
     flat = tope.reshape(-1)
     order = torch.argsort(flat, stable=True)
     counts = torch.bincount(flat, minlength=cfg.n_experts).tolist()

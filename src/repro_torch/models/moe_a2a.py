@@ -89,30 +89,47 @@ def local_moe(p, cfg, x, my_half: int, tp: int) -> torch.Tensor:
 
 
 def moe_halfexpert(p, cfg, x, mesh) -> torch.Tensor:
-    """x [B, S, d] (B divisible by the "data" size) through the
+    """x [B, S, d] (B divisible by the data-parallel size) through the
     half-expert MoE on ``mesh`` (a ``launch/mesh.py`` Mesh, "data" x
-    "model"); p: router [d, E], wg/wu [tp, d, fh], wd [tp, fh, d] with
-    tp the "model" size. Returns [B, S, d] on the mesh's first device."""
-    dp, tp = mesh.shape["data"], mesh.shape["model"]
+    "model", or "pod" x "data" x "model"); p: router [d, E], wg/wu
+    [tp, d, fh], wd [tp, fh, d] with tp the "model" size. The "pod" axis
+    is pure data parallelism, as in the reference: the batch splits over
+    pod x data rows, each weight gather stays inside its pod's "data"
+    column (one ``mesh.all_gather`` a (pod, column) and weight, every
+    member of the column taking its copy) and each output sum inside its
+    row's "model" axis. Returns [B, S, d] on the mesh's first device."""
+    shape = mesh.shape
+    if set(shape) - {"pod", "data", "model"}:
+        raise ValueError(f"no half-expert MoE on a {tuple(shape)} mesh")
+    pods, dp, tp = shape.get("pod", 1), shape["data"], shape["model"]
+    n_rows = pods * dp
     B = x.shape[0]
-    if B % dp:
-        raise ValueError(f"batch {B} does not split over data {dp}")
-    bl, fl = B // dp, p["wg"].shape[2] // dp
-    rows = []
-    for r in range(dp):
-        outs = []
+    if B % n_rows:
+        raise ValueError(f"batch {B} does not split over {n_rows} "
+                         "data-parallel rows")
+    bl, fl = B // n_rows, p["wg"].shape[2] // dp
+    # chip (pod, r, c) holds columns r of half-expert c: gather them
+    weights = {}
+    for pod in range(pods):
         for c in range(tp):
-            col = M.column_mesh(mesh, c)
-            # chip (r', c) holds columns r' of half-expert c: gather them
-            gather = {n: M.all_gather(
-                [p[n][c].narrow(ax, r2 * fl, fl).to(dev)
-                 for r2, dev in enumerate(col.devices)], ax, col)[r]
+            devs = [mesh.devices[(pod * dp + r) * tp + c] for r in range(dp)]
+            col = M.make_mesh(1, dp, devs)
+            gathered = {n: M.all_gather(
+                [p[n][c].narrow(ax, r * fl, fl).to(dev)
+                 for r, dev in enumerate(devs)], ax, col)
                 for n, ax in (("wg", 1), ("wu", 1), ("wd", 0))}
-            dev = mesh.devices[r * tp + c]
-            gather["router"] = p["router"].to(dev)
-            outs.append(local_moe(gather, cfg, x[r * bl:(r + 1) * bl].to(dev),
-                                  c, tp))
-        rows.append(M.all_reduce(outs, M.row_mesh(mesh, r))[0])
+            for r, dev in enumerate(devs):
+                w = {n: g[r] for n, g in gathered.items()}
+                w["router"] = p["router"].to(dev)
+                weights[pod * dp + r, c] = w
+    rows = []
+    for row in range(n_rows):
+        outs = [local_moe(weights[row, c], cfg,
+                          x[row * bl:(row + 1) * bl].to(
+                              mesh.devices[row * tp + c]), c, tp)
+                for c in range(tp)]
+        rows.append(M.all_reduce(outs, M.make_mesh(
+            1, tp, mesh.devices[row * tp:(row + 1) * tp]))[0])
     dev0 = mesh.devices[0]
     return torch.cat([o.to(dev0) for o in rows], dim=0)
 

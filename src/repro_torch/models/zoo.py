@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -90,6 +91,18 @@ class ModelAPI:
     def specs(self) -> Pytree:
         """Shapes, init kinds and logical axes of every leaf."""
         return bridge.param_specs(self.cfg)
+
+    def abstract(self, device="meta") -> Pytree:
+        """The parameters as empty tensors (meta by default: shapes and
+        dtypes only), the reference's ``abstract()``."""
+        return bridge.abstract_params(self.cfg, device)
+
+    def axes(self) -> Pytree:
+        return bridge.logical_axes(self.cfg)
+
+    @cached_property
+    def n_params(self) -> int:
+        return bridge.param_count(self.cfg)
 
     @property
     def n_bytes(self) -> int:

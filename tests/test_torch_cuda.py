@@ -1367,3 +1367,65 @@ def test_standalone_merge_combined_partial_matches_plain(card, dtype, n):
     got = PF._launch(q, kp, vp, None, ((n, 64), (0, 0)))
     torch.cuda.synchronize()
     _assert_partial_close(got, q, kp, vp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_meta_count_equals_the_card_count(card, kind):
+    """One reduced bf16 smollm-360m step counted on the card (the split-K
+    kernel by its formula) equals its count on meta tensors exactly."""
+    from repro_torch.configs import ShapeSpec, get_config, reduced
+    from repro_torch.launch import dryrun, mesh
+    cfg = reduced(get_config("smollm-360m"))
+    shape = {"train": ShapeSpec("t", 64, 2, "train"),
+             "prefill": ShapeSpec("p", 128, 2, "prefill"),
+             "decode": ShapeSpec("d", 128, 4, "decode")}[kind]
+    counts = {}
+    for dev in ("meta", "cuda"):
+        cell = dryrun.build_cell(cfg, shape, mesh=mesh.make_mesh(1, 1, [dev]),
+                                 device=dev)
+        c = dryrun.count_cell(cell)
+        counts[dev] = (c.dot_flops, c.dot_bytes, c.dots, c.kernels)
+    assert counts["cuda"] == counts["meta"]
+    assert counts["cuda"][0] > 0
+    assert bool(counts["cuda"][3]) == (kind == "decode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_slot_decode_count_is_the_same_on_meta_and_the_card(card, tp):
+    """A tensor-parallel paged decode on a slot-wise pool (tp shards on
+    the one card, bf16) splits each shard's partials ns > 1 ways on the
+    card and one way on meta; its count is the same on both, the merge
+    charged one f32 slot a shard (``counting.merge_cost``)."""
+    from repro_torch.analysis import counting
+    from repro_torch.launch import mesh as tmesh, sharding as tsh
+    from repro_torch.models import attention as tatt
+    B, H, KH, D, PS, P, N = 3, 8, 2, 64, 16, 32, 80
+    g = torch.Generator().manual_seed(7)
+    q = torch.randn(B, H, D, generator=g).to(torch.bfloat16)
+    kp, vp = (torch.randn(N, PS, KH, D, generator=g).to(torch.bfloat16)
+              for _ in range(2))
+    pt = torch.randint(1, N, (B, P), generator=g, dtype=torch.int32)
+    lens = torch.full((B,), P * PS, dtype=torch.int32)
+    sl, hs = PS // tp, H // tp
+    counts = {}
+    for dev in ("meta", "cuda"):
+        plan = tsh.ShardPlan(mesh=tmesh.make_mesh(1, tp, [dev] * tp),
+                             heads=True, kv_heads=False, ff=True, vocab=True,
+                             pool="slot", n_pages=N, page_size=PS)
+        qs = [q[:, s * hs:(s + 1) * hs].contiguous().to(dev)
+              for s in range(tp)]
+        pages = [{n: t[:, s * sl:(s + 1) * sl].contiguous().to(dev)
+                  for n, t in (("k", kp), ("v", vp))} for s in range(tp)]
+        if dev == "cuda":
+            assert PA.plan_for(q.to(dev), pages[0]["k"], pt.to(dev))[0] > 1
+        with counting.Counter() as c:
+            out = tatt.paged_attention_tp(qs, pages, [pt.to(dev)] * tp,
+                                          [lens.to(dev)] * tp, plan, H)
+        counts[dev] = (c.dot_flops, c.dot_bytes, c.kernels,
+                       c.collective_bytes, c.collective_counts)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(o.float()).all() for o in out)
+    assert counts["cuda"] == counts["meta"]
+    assert counts["cuda"][2]["paged_decode_partials"]["calls"] == tp

@@ -249,9 +249,12 @@ def test_wrapper_rejects_non_contiguous_and_foreign_devices():
     with pytest.raises(ValueError):
         PA._check_cuda(q, k.transpose(0, 1).contiguous().transpose(0, 1),
                        v, pt, lens)
-    with pytest.raises(ValueError):
-        PA.paged_decode_attention(*(t.to("meta") for t in
-                                    (q, k, v, pt, lens)))
+    with pytest.raises(ValueError):                     # devices differ
+        PA._check_cuda(q, k.to("meta"), v, pt, lens)
+    # meta tensors (shapes only): an empty output of the kernel's shape
+    out = PA.paged_decode_attention(*(t.to("meta") for t in
+                                      (q, k, v, pt, lens)))
+    assert out.device.type == "meta" and out.shape == q.shape
 
 
 def test_build_rebuilds_when_the_source_changes(tmp_path, monkeypatch):

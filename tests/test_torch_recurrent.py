@@ -611,7 +611,7 @@ def test_serve_cli_rwkv_matches_the_jax_cli(monkeypatch, capsys):
 def test_full_width_sizes_match_jax(arch):
     japi, tapi = jzoo.build(ARCHS[arch]), tzoo.build(TARCHS[arch])
     assert tapi.n_bytes == japi.n_bytes
-    assert tzoo._count(tapi.specs, lambda s: 1.0) == japi.n_params
+    assert tapi.n_params == japi.n_params
     assert tapi.n_active_params == japi.n_active_params
 
 
