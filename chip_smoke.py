@@ -3329,6 +3329,361 @@ def train_phase(torch, configs, bridge, zoo, dev="cuda", cfg=None,
 
 
 # ---------------------------------------------------------------------------
+# sharded training over emulated meshes
+# ---------------------------------------------------------------------------
+
+SHARD_MESHES = ((2, 1), (4, 1), (2, 2))
+SHARD_BF16_MESH = (4, 1)
+SHARD_BF16_STEPS = 3
+SHARD_CLI = ["--shards", "2", "--steps", "3"]
+
+
+def shard_mesh(M, shape, dev):
+    return M.make_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
+
+
+def shard_state_bytes(shards):
+    """Bytes of each shard's state."""
+    return [tree_bytes(s.as_dict()) for s in shards]
+
+
+def shard_rel(a, b):
+    """|a - b| / |b| of each entry of two equal-length lists."""
+    return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+
+def shard_f32_check(torch, T, SH, M, bridge, api, batch, dev):
+    """One float32 step of ``api``'s model from the same parameters
+    (``train_params``, seed 0) and batch on each of SHARD_MESHES, every
+    shard on ``dev``, against two one-device ``make_train_step`` steps:
+    the plain one (grad_accum 1) and the one over the same rows
+    (grad_accum = the mesh's data rows: microbatches of the rows each
+    data shard takes, the same products). Against the same rows the
+    loss and grad norm must be within TRAIN_RTOL and every parameter
+    within 2.1 lr (``train_card_vs_cpu``'s tolerances); against the
+    plain step the loss within TRAIN_RTOL, the parameters within 2.1 lr
+    and the grad norm no further than the one-device same-rows step is
+    from it, plus TRAIN_RTOL (at full depth the model's float32 grads
+    move with the rows' product shapes: that gap is the model's, on one
+    device). Each mesh's step wall, peak memory and per-shard state
+    bytes."""
+    def tc(accum):
+        return T.TrainConfig(adamw=T.AdamWConfig(lr=3e-3), warmup_steps=0,
+                             total_steps=10, grad_accum=accum)
+    params = train_params(torch, bridge, api.cfg, 0, dev)
+    state = T.init_state(params, tc(1))
+    out, one = {}, {}
+    for accum in sorted({1} | {shape[0] for shape in SHARD_MESHES}):
+        sync(torch, dev)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ref, m = T.make_train_step(api, tc(accum))(state, batch)
+        sync(torch, dev)
+        one[accum] = ([float(m[k]) for k in ("loss", "grad_norm")],
+                      flat_leaves(ref.params), float(m["lr"]))
+        out[f"one_device_accum{accum}"] = dict(
+            wall_s=time.perf_counter() - t0, loss=one[accum][0][0],
+            grad_norm=one[accum][0][1])
+        if dev == "cuda":
+            out[f"one_device_accum{accum}"]["peak_gib"] = \
+                torch.cuda.max_memory_allocated() / 2 ** 30
+        del ref
+    out["one_device_state_bytes"] = tree_bytes(state.as_dict())
+    del state
+    for shape in SHARD_MESHES:
+        mesh = shard_mesh(M, shape, dev)
+        step = SH.make_sharded_train_step(api, tc(1), mesh)
+        shards = SH.init_sharded_state(params, step.sharding, tc(1))
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        new, m = step(shards, batch)
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+        got_m = [float(m[k]) for k in ("loss", "grad_norm")]
+        got = flat_leaves(SH.unshard_state(new, step.sharding).params)
+        name = f"{shape[0]}x{shape[1]}"
+        row = dict(wall_s=wall, shard_state_bytes=shard_state_bytes(shards))
+        for label, accum in (("same_rows", shape[0]), ("plain", 1)):
+            want_m, want, lr = one[accum]
+            rel = shard_rel(got_m, want_m)
+            worst = max((got[k] - want[k]).abs().max().item() for k in want)
+            row[label] = dict(accum=accum, rel_loss=rel[0],
+                              rel_grad_norm=rel[1],
+                              max_param_diff_in_lr=worst / lr)
+            check(worst <= 2.1 * lr, f"sharded train {name}: parameters "
+                  f"{worst / lr:.3g} lr from the one-device {label} step")
+            check(rel[0] <= TRAIN_RTOL, f"sharded train {name}: loss "
+                  f"{rel[0]:.3g} from the one-device {label} step")
+        split = shard_rel(one[shape[0]][0], one[1][0])[1]
+        row["one_device_split_rel_grad_norm"] = split
+        check(row["same_rows"]["rel_grad_norm"] <= TRAIN_RTOL,
+              f"sharded train {name}: grad norm vs the same rows {row}")
+        check(row["plain"]["rel_grad_norm"] <= split + TRAIN_RTOL,
+              f"sharded train {name}: grad norm vs one device {row}")
+        if dev == "cuda":
+            row["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[name] = row
+        del shards, new, got
+    print("sharded train: float32 full-width step on each mesh against one "
+          f"device (tolerance {TRAIN_RTOL} relative, parameters within 2.1 "
+          "lr): " + json.dumps(out))
+    return out
+
+
+def shard_collectives(torch, T, SH, M, dry, bridge, api, batch, dev, shape):
+    """The collectives of one TrainConfig() step on ``shape`` under a
+    ``counting.Counter`` (per device: the totals over the mesh's
+    shards), beside ``dryrun.rule_collectives``' entries for the same
+    config, batch and mesh (meta shapes)."""
+    from repro_torch.analysis import counting
+    from repro_torch.configs import ShapeSpec
+    tc = T.TrainConfig()
+    mesh = shard_mesh(M, shape, dev)
+    step = SH.make_sharded_train_step(api, tc, mesh)
+    shards = SH.init_sharded_state(train_params(torch, bridge, api.cfg, 0,
+                                                dev), step.sharding, tc)
+    with counting.Counter() as c:
+        step(shards, batch)
+        sync(torch, dev)
+    del shards
+    B, S = batch["tokens"].shape
+    cell = dry.build_cell(api.cfg, ShapeSpec("train", S, B, "train"),
+                          mesh=shard_mesh(M, shape, "meta"),
+                          overrides=dict(grad_accum=1, quant_moments=False))
+    with dry.applied(cell.layout):
+        rule = dry.rule_collectives(cell)
+    n = mesh.size
+    issued = {k: dict(bytes_per_device=v / n,
+                      count_per_device=c.collective_counts[k] / n)
+              for k, v in sorted(c.collective_bytes.items())}
+    by_src = {}
+    for r in rule:
+        e = by_src.setdefault(f"{r['source']} ({r['kind']})",
+                              dict(bytes_per_device=0, count=0))
+        e["bytes_per_device"] += r["bytes"]
+        e["count"] += r["count"]
+    grad = {r["kind"]: 0 for r in rule if r["source"] == "gradient reduce"}
+    for r in rule:
+        if r["source"] == "gradient reduce":
+            grad[r["kind"]] += r["bytes"]
+    rs = issued.get("reduce-scatter", {}).get("bytes_per_device", 0)
+    check(rs == grad.get("reduce-scatter", 0),
+          f"sharded train {shape}: reduce-scatter {rs} B a device, the rule "
+          f"{grad.get('reduce-scatter', 0)}")
+    return dict(issued=issued, rule=by_src)
+
+
+def shard_bf16_run(torch, T, SH, M, bridge, api, batches, dev):
+    """SHARD_BF16_STEPS steps of TrainConfig() on SHARD_BF16_MESH beside
+    the one-device steps from the same parameters, plain and over the
+    same rows (grad_accum = the mesh's data rows). Tolerance, stated
+    before the run: each loss within BF16_REL relative of the plain
+    one-device step's, each loss and grad norm within BF16_REL of the
+    same-rows step's (the shards round their summed bfloat16 grads once
+    more), each grad norm no further from the plain step's than the
+    same-rows step is, plus BF16_REL. Walls, peak memory, per-shard and
+    one-device state bytes. Returns the sharded state, its step and the
+    figures."""
+    params = train_params(torch, bridge, api.cfg, 0, dev)
+    rows = SHARD_BF16_MESH[0]
+    print(f"sharded train: bf16 {SHARD_BF16_MESH} against one device, "
+          f"tolerance {BF16_REL} relative (loss against the plain step; "
+          f"loss and grad norm against grad_accum {rows})")
+    out, res = {}, {}
+    mesh = shard_mesh(M, SHARD_BF16_MESH, dev)
+    for name in ("one_device", f"one_device_accum{rows}", "sharded"):
+        tc = T.TrainConfig(grad_accum=1 if name != f"one_device_accum{rows}"
+                           else rows)
+        if name == "sharded":
+            step = SH.make_sharded_train_step(api, tc, mesh)
+            state = SH.init_sharded_state(params, step.sharding, tc)
+        else:
+            step = T.make_train_step(api, tc)
+            state = T.init_state(params, tc)
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        got, walls = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            sync(torch, dev)
+            walls.append(time.perf_counter() - t0)
+            got.append([float(m["loss"]), float(m["grad_norm"])])
+            print(f"sharded train: bf16 {name} step {len(got)} "
+                  f"loss={got[-1][0]:.6f} gnorm={got[-1][1]:.6g} "
+                  f"wall={walls[-1] * 1e3:.1f} ms")
+        out[name] = dict(losses=[r[0] for r in got],
+                         grad_norms=[r[1] for r in got], walls_s=walls)
+        if dev == "cuda":
+            out[name]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if name == "sharded":
+            out[name]["shard_state_bytes"] = shard_state_bytes(state)
+            res[name] = (state, step, got)
+        else:
+            out[name]["state_bytes"] = tree_bytes(state.as_dict())
+            res[name] = (None, None, got)
+        del state
+    plain, same, sh = (res[k][2] for k in ("one_device",
+                                           f"one_device_accum{rows}",
+                                           "sharded"))
+    for p, q, x in zip(plain, same, sh):
+        check(all(math.isfinite(v) for v in x),
+              f"sharded train bf16: {x} not finite")
+        check(shard_rel(x, p)[0] <= BF16_REL
+              and max(shard_rel(x, q)) <= BF16_REL
+              and shard_rel(x, p)[1] <= shard_rel(q, p)[1] + BF16_REL,
+              f"sharded train bf16: {x} against one device {p} and the "
+              f"same rows {q}")
+    print("sharded train: bf16 " + json.dumps(out))
+    return res["sharded"][0], res["sharded"][1], out
+
+
+def shard_elastic(torch, T, SH, M, ckpt, api, shards, step4, b, dev):
+    """Save the SHARD_BF16_MESH state, restore it onto (2, 1) and onto
+    one device: every restored leaf bit-equal to the saved state's own
+    block; then one more step on each mesh from the restored state
+    against the same step from the saved state laid out on that mesh
+    (loss and grad norm within one bf16 ulp relative, parameters within
+    one bf16 ulp plus 2.1 lr: the embedding's backward accumulates with
+    atomics on the card, so the grads need not be bit-equal)."""
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    tc = T.TrainConfig()
+    out = {}
+    whole = SH.unshard_state(shards, step4.sharding)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(d, [s.as_dict() for s in shards],
+                             int(shards[0].step), shardings=step4.sharding)
+        out["save_s"] = time.perf_counter() - t0
+        out["checkpoint_bytes"] = tree_bytes(whole.as_dict())
+        for name, shape in (("2x1", (2, 1)), ("1x1", (1, 1))):
+            step = SH.make_sharded_train_step(api, tc,
+                                              shard_mesh(M, shape, dev))
+            t0 = time.perf_counter()
+            back = [T.TrainState.from_dict(x) for x in
+                    ckpt.restore_checkpoint(d, shardings=step.sharding)]
+            sync(torch, dev)
+            restore_s = time.perf_counter() - t0
+            want = SH.shard_state(whole, step.sharding)
+            for got, w in zip(back, want):
+                a, r = flat_leaves(got.as_dict()), flat_leaves(w.as_dict())
+                check(set(a) == set(r), f"elastic {name}: paths differ")
+                for k in a:
+                    check(a[k].dtype == r[k].dtype and torch.equal(a[k], r[k]),
+                          f"elastic {name}: restored leaf {k} differs")
+            sa, ma = step(want, b)
+            del want
+            sr, mr = step(back, b)
+            lr = float(ma["lr"])
+            rel = {k: abs(float(ma[k]) - float(mr[k])) / float(ma[k])
+                   for k in ("loss", "grad_norm")}
+            check(all(v <= BF16_REL for v in rel.values()),
+                  f"elastic {name}: the next step's {rel} relative")
+            pa = flat_leaves(SH.unshard_state(sa, step.sharding).params)
+            pr = flat_leaves(SH.unshard_state(sr, step.sharding).params)
+            use = max(((pa[k].float() - pr[k].float()).abs()
+                       / (BF16_REL * pa[k].float().abs() + 2.1 * lr))
+                      .max().item() for k in pa)
+            check(use <= 1.0, f"elastic {name}: next step {use:.3g} x the "
+                  "bf16 bound")
+            out[name] = dict(restore_s=restore_s, next_step_rel=rel,
+                             share_of_bound=use, shards=len(back),
+                             params_differ=sum(int((pa[k] != pr[k]).sum())
+                                               for k in pa))
+            del back, sa, sr, pa, pr
+    del whole
+    print("sharded train: elastic restore " + json.dumps(out))
+    return out
+
+
+def shard_cli(torch, T, tcli, dev, extra=()):
+    """The train CLI over a host mesh of 2 shards (SHARD_CLI, a
+    checkpoint at its end), then a resume at one shard to step 5."""
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        for args in (SHARD_CLI, ["--shards", "1", "--steps", "5"]):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                state = tcli.main(TRAIN_CLI + ["--device", dev, "--ckpt-dir",
+                                               d] + args + list(extra))
+            out[" ".join(args)] = time.perf_counter() - t0
+            text = buf.getvalue()
+            print("".join(f"sharded train: cli: {line}\n"
+                          for line in text.splitlines()), end="")
+            check(int(state.step) == int(args[-1]),
+                  f"sharded train cli: step {state.step}")
+            del state
+        check("resumed from step 3" in text,
+              "sharded train cli: the one-shard call did not resume")
+    print("sharded train: cli walls " + json.dumps(out))
+    return out
+
+
+def sharded_train_phase(torch, configs, bridge, zoo, dev="cuda", cfg=None,
+                        seq=TRAIN_SEQ, cli_extra=()):
+    """smollm-360m at full width and depth (TRAIN_WIDTH) trained over
+    meshes emulated on one device: the float32 step on SHARD_MESHES
+    against one device (``shard_f32_check``), the bf16 steps on
+    SHARD_BF16_MESH beside one device (``shard_bf16_run``), the
+    collectives of a step beside the dry-run's rule
+    (``shard_collectives``), the elastic restore (``shard_elastic``) and
+    the CLI (``shard_cli``). Rehearses on the CPU with ``dev="cpu"``, a
+    reduced ``cfg`` and ``cli_extra=["--reduced"]``."""
+    import dataclasses
+    from repro_torch import train as T
+    from repro_torch.launch import dryrun as dry
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train as tcli
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import sharded as SH
+    if cfg is None:
+        cfg = configs.get_config("smollm-360m")
+        check(all(getattr(cfg, k) == v for k, v in TRAIN_WIDTH.items()),
+              "smollm-360m is not at full width")
+    data = tcli.synthetic_batches(cfg.vocab_size, TRAIN_BATCH, seq, seed=0,
+                                  device=dev)
+    batches = [next(data) for _ in range(SHARD_BF16_STEPS + 1)]
+    api32 = zoo.build(dataclasses.replace(cfg, dtype="float32"))
+    t0 = time.perf_counter()
+    f32 = shard_f32_check(torch, T, SH, M, bridge, api32, batches[0], dev)
+    del api32
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    api = zoo.build(cfg)
+    colls = {f"{s[0]}x{s[1]}": shard_collectives(
+        torch, T, SH, M, dry, bridge, api, batches[0], dev, s)
+        for s in (SHARD_BF16_MESH, (2, 2))}
+    print("sharded train: collectives of a TrainConfig() step (issued, per "
+          "device) beside dryrun.rule_collectives " + json.dumps(colls))
+    shards, step4, bf16 = shard_bf16_run(
+        torch, T, SH, M, bridge, api, batches[:SHARD_BF16_STEPS], dev)
+    elastic = shard_elastic(torch, T, SH, M, ckpt, api, shards, step4,
+                            batches[-1], dev)
+    del shards
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    cli = shard_cli(torch, T, tcli, dev, cli_extra)
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    print(f"sharded train: phase took {time.perf_counter() - t0:.1f}s")
+    return dict(f32=f32, collectives=colls, bf16=bf16, elastic=elastic,
+                cli=cli)
+
+
+# ---------------------------------------------------------------------------
 # the dry-run and its roofline
 # ---------------------------------------------------------------------------
 
@@ -3623,6 +3978,9 @@ def main() -> None:
     print(f"train: phase took {time.perf_counter() - t0:.1f}s; "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
           "allocated after it")
+    sharded_train_phase(torch, configs, bridge, zoo)
+    print(f"sharded train: {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+          "GiB still allocated after it")
     t0 = time.perf_counter()
     dryrun_phase(torch, configs)
     print(f"dryrun: phase took {time.perf_counter() - t0:.1f}s")

@@ -12,11 +12,25 @@ more than once, so a submesh of k shards can be emulated on one device
 code puts the shards on k cards when k are visible.
 
 The collectives that GSPMD inserts in the reference are explicit calls
-here, ``all_reduce`` and ``all_gather``. Both gather the parts to shard
-0's device, combine them in shard order and hand every shard its own
-result, so a run on one device gives the same bits as a run on k. While
-an ``analysis.counting.Counter`` is active, each call reports its kind
-and bytes to it.
+here: ``all_reduce`` (a sum or a max), ``all_gather``, ``reduce_scatter``
+and ``gather_whole``. A reduction runs over all of the mesh's axes or
+over a subset: the shards that differ only in those axes form a group
+(``groups``), and each group is reduced on its own, as the gradient
+reduce of a train step runs over the data axes while the "model" shards
+of a data row hold different pieces. Every collective gathers a group's
+parts to the group's first device, combines them in shard order (sums
+in float32) and hands every shard its own result, so a run on one
+device gives the same bits as a run on k. While an
+``analysis.counting.Counter`` is active, each call reports its kind and
+bytes to it, per group of more than one shard.
+
+A leaf laid out by a PartitionSpec (one entry per leading dim: a mesh
+axis, a tuple of axes, or None) has one block a shard: ``block_slices``
+gives shard s's, the block that JAX's ``NamedSharding(mesh, pspec)``
+gives the device at mesh position s, devices in row-major order (a dim
+over a tuple of axes is cut into the product of their sizes, the first
+axis the major). ``piece`` cuts a block, ``assemble`` puts the blocks
+of a leaf back together.
 
 A mesh may also carry named axes of any sizes, as the reference's
 production meshes do: ``make_production_mesh`` gives ("data", "model")
@@ -30,7 +44,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -201,19 +215,163 @@ def replicate(t: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
     return [t if t.device == d else t.to(d) for d in mesh.devices]
 
 
-def all_reduce(parts: Sequence[torch.Tensor], mesh: Mesh
+def coords(mesh: Mesh, s: int) -> Dict[str, int]:
+    """Shard s's position on each axis (devices in row-major order)."""
+    out = {}
+    for name, n in reversed(mesh.axes):
+        out[name] = s % n
+        s //= n
+    return out
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one PartitionSpec entry (None: none)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_axes(pspec) -> Tuple[str, ...]:
+    """Every mesh axis a PartitionSpec names, in its order."""
+    return tuple(a for e in pspec for a in entry_axes(e))
+
+
+def groups(mesh: Mesh, axes: Optional[Sequence[str]] = None
+           ) -> List[List[int]]:
+    """The shards that agree on every axis outside ``axes`` (default:
+    every axis, one group), each group in shard order."""
+    axes = set(mesh.shape if axes is None else axes)
+    out: Dict[Tuple, List[int]] = {}
+    for s in range(mesh.size):
+        c = coords(mesh, s)
+        out.setdefault(tuple(c[a] for a, _ in mesh.axes if a not in axes),
+                       []).append(s)
+    return list(out.values())
+
+
+def block_slices(shape: Sequence[int], pspec, mesh: Mesh, s: int
+                 ) -> List[Tuple[int, int, int]]:
+    """(dim, start, length) of shard s's block along each split dim."""
+    c = coords(mesh, s)
+    out = []
+    for d, e in enumerate(pspec):
+        axes = entry_axes(e)
+        if not axes:
+            continue
+        idx, n = 0, 1
+        for a in axes:
+            idx = idx * mesh.shape[a] + c[a]
+            n *= mesh.shape[a]
+        if shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                             f"over {axes} ({n} ways)")
+        ln = shape[d] // n
+        out.append((d, idx * ln, ln))
+    return out
+
+
+def block_view(t: torch.Tensor, pspec, mesh: Mesh, s: int) -> torch.Tensor:
+    """Shard s's block of the whole tensor ``t``, a view."""
+    for d, start, ln in block_slices(t.shape, pspec, mesh, s):
+        t = t.narrow(d, start, ln)
+    return t
+
+
+def piece(t: torch.Tensor, pspec, mesh: Mesh, s: int) -> torch.Tensor:
+    """Shard s's block of the whole tensor ``t``: a fresh tensor on
+    shard s's device."""
+    v = block_view(t, pspec, mesh, s)
+    out = torch.empty(v.shape, dtype=v.dtype, device=mesh.devices[s])
+    return out.copy_(v)
+
+
+def holders(mesh: Mesh, pspec) -> List[int]:
+    """One shard for each distinct block of a leaf laid out by
+    ``pspec``: those at position 0 on every axis the spec does not
+    name."""
+    named = set(spec_axes(pspec))
+    return [s for s in range(mesh.size)
+            if all(v == 0 for a, v in coords(mesh, s).items()
+                   if a not in named)]
+
+
+def assemble(parts: Sequence[torch.Tensor], shape: Sequence[int], pspec,
+             mesh: Mesh, device) -> torch.Tensor:
+    """The whole leaf of ``shape`` from its shards' blocks (``parts[s]``
+    shard s's), a fresh tensor on ``device``."""
+    out = torch.empty(tuple(shape), dtype=parts[0].dtype, device=device)
+    for s in holders(mesh, pspec):
+        block_view(out, pspec, mesh, s).copy_(parts[s])
+    return out
+
+
+def _report(kind: str, nbytes_: int, members: int, group: int) -> None:
+    """Count one collective over ``group`` shards of which ``members``
+    receive ``nbytes_`` each; a group of one moves nothing."""
+    if counting.ACTIVE is not None and group > 1:
+        counting.ACTIVE.collective(kind, nbytes_, members)
+
+
+def all_reduce(parts: Sequence[torch.Tensor], mesh: Mesh,
+               axes: Optional[Sequence[str]] = None, op: str = "sum"
                ) -> List[torch.Tensor]:
-    """The sum of every shard's part, on every shard: the parts are
-    gathered to shard 0's device and added in shard order in float32,
-    then cast back to the parts' dtype and broadcast."""
-    if counting.ACTIVE is not None:
-        counting.ACTIVE.collective("all-reduce", counting.nbytes(parts[0]),
-                                   len(parts))
-    dev0 = mesh.devices[0]
-    acc = parts[0].to(dev0, dtype=torch.float32, copy=True)
-    for p in parts[1:]:
-        acc += p.to(dev0)
-    return broadcast(acc.to(parts[0].dtype), mesh)
+    """Every shard's result of combining the parts of its group (the
+    shards that differ only in ``axes``; default every axis): the parts
+    are gathered to the group's first device and combined in shard order,
+    a "sum" in float32 and cast back to the parts' dtype, or the
+    elementwise "max"; each shard gets its own copy, never an alias of
+    another shard's."""
+    if op not in ("sum", "max"):
+        raise ValueError(f"all_reduce op {op!r}")
+    out: List[Any] = [None] * mesh.size
+    for g in groups(mesh, axes):
+        _report("all-reduce", counting.nbytes(parts[g[0]]), len(g), len(g))
+        dev = mesh.devices[g[0]]
+        if op == "sum":
+            acc = parts[g[0]].to(dev, dtype=torch.float32, copy=True)
+            for s in g[1:]:
+                acc += parts[s].to(dev)
+            acc = acc.to(parts[g[0]].dtype)
+        else:
+            acc = parts[g[0]].to(dev, copy=True)
+            for s in g[1:]:
+                acc = torch.maximum(acc, parts[s].to(dev))
+        out[g[0]] = acc
+        for s in g[1:]:
+            out[s] = acc.to(mesh.devices[s], copy=True)
+    return out
+
+
+def reduce_scatter(parts: Sequence[torch.Tensor], pspec, mesh: Mesh,
+                   axes: Sequence[str]) -> List[torch.Tensor]:
+    """``parts[s]`` is shard s's whole-leaf term; shard s gets its block
+    (by ``pspec``) of the sum over its group (the shards that differ only
+    in ``axes``): the group's blocks added in shard order in float32 on
+    shard s's device and cast back to the parts' dtype. ``pspec`` may
+    also split over axes outside ``axes``: those blocks are cut locally,
+    with nothing to reduce."""
+    out: List[Any] = [None] * mesh.size
+    for g in groups(mesh, axes):
+        for s in g:
+            dev = mesh.devices[s]
+            acc = block_view(parts[g[0]], pspec, mesh, s).to(
+                dev, dtype=torch.float32, copy=True)
+            for t in g[1:]:
+                acc += block_view(parts[t], pspec, mesh, s).to(dev)
+            out[s] = acc.to(parts[g[0]].dtype)
+        _report("reduce-scatter", counting.nbytes(out[g[0]]), len(g),
+                len(g))
+    return out
+
+
+def gather_whole(parts: Sequence[torch.Tensor], shape: Sequence[int],
+                 pspec, mesh: Mesh, device) -> torch.Tensor:
+    """The whole leaf assembled from its shards' blocks on ``device``:
+    the all-gather over the axes ``pspec`` names, counted as one device
+    receiving the whole leaf (the device that computes on it)."""
+    _report("all-gather", math.prod(shape) * parts[0].element_size(), 1,
+            math.prod(mesh.shape[a] for a in spec_axes(pspec)))
+    return assemble(parts, shape, pspec, mesh, device)
 
 
 def gather(parts: Sequence[torch.Tensor], dim: int,
@@ -228,7 +386,6 @@ def all_gather(parts: Sequence[torch.Tensor], dim: int, mesh: Mesh
                ) -> List[torch.Tensor]:
     """The shards' parts concatenated along ``dim`` in shard order, on
     every shard."""
-    if counting.ACTIVE is not None:
-        counting.ACTIVE.collective(
-            "all-gather", sum(counting.nbytes(p) for p in parts), len(parts))
+    _report("all-gather", sum(counting.nbytes(p) for p in parts),
+            len(parts), len(parts))
     return broadcast(gather(parts, dim, mesh), mesh)

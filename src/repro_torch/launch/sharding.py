@@ -20,8 +20,17 @@ lay out the MoE leaves; "inner" lays out the Mamba leaves.
 ``q8_scale_pspec`` give the training state's, the batch's and the decode
 cache's specs on any mesh of the reference's axes ("pod", "data",
 "expert", "model"), as the reference's functions do; the dry-run
-(``launch/dryrun.py``) reads them. The port trains on one device, and
-sharded training over a mesh is not ported.
+(``launch/dryrun.py``) and the sharded train step
+(``train/sharded.py``) read them.
+
+``shard_tree`` cuts every leaf of a tree into its shards' blocks by its
+PartitionSpec, over every axis the spec names (a single axis, a tuple
+of axes, several split dims a leaf), one fresh tensor a shard on its
+shard's device: shard s's block is the one JAX's ``NamedSharding`` gives
+the device at mesh position s (``mesh.block_slices``). ``unshard_tree``
+puts the blocks back together. A ``TreeSharding`` (a mesh and a tree of
+PartitionSpecs) is the port's counterpart of a tree of NamedShardings:
+what ``restore_checkpoint(..., shardings=)`` places a checkpoint by.
 
 On a serve submesh ("data", "model") = (1, tp) only the "model" axis
 splits anything: ``shard_params`` cuts every leaf along the dims whose
@@ -40,6 +49,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from ..bridge import Spec
+from . import mesh as M
 from .mesh import Mesh, axis_size, data_axes
 
 Pytree = Any
@@ -81,9 +91,7 @@ def train_policy(mesh: Mesh) -> Policy:
     """TP over "model" (heads, ff, vocab, experts, inner) and FSDP over
     "data" on the embed dim; an expert's ff dim takes "model" and "data"
     jointly, never its input dim (a data-sharded contraction dim would
-    turn the expert products into float32 partial-sum all-reduces).
-    The port trains on one device; the specs say how a mesh would lay
-    the training state out."""
+    turn the expert products into float32 partial-sum all-reduces)."""
     return Policy(rules={
         "vocab": ("model",),
         "heads": ("model",),
@@ -258,50 +266,89 @@ def _model_dims(pspec: PSpec) -> List[int]:
             if e is not None and "model" in _norm(e)]
 
 
-def _piece(t: torch.Tensor, dims: Sequence[int], s: int, tp: int,
-           device) -> torch.Tensor:
-    """Shard s's contiguous piece of t on ``device``: a fresh tensor."""
-    for d in dims:
-        n = t.shape[d] // tp
-        t = t.narrow(d, s * n, n)
-    out = torch.empty(t.shape, dtype=t.dtype, device=device)
-    return out.copy_(t)
+def _zip_walk(tree: Pytree, pspecs: Pytree, fn, path=()) -> Pytree:
+    """fn(path, leaf, pspec) over the leaves of ``tree``; a path that
+    ``pspecs`` lacks is replicated (pspec ())."""
+    if isinstance(tree, dict):
+        return {k: _zip_walk(v, pspecs.get(k, ()) if isinstance(pspecs, dict)
+                             else (), fn, path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree, pspecs if isinstance(pspecs, tuple) else ())
+
+
+def shard_tree(tree: Pytree, pspecs: Pytree, mesh: Mesh) -> List[Pytree]:
+    """One tree a shard: each leaf shard s's block by its PartitionSpec
+    (the whole leaf where the spec splits nothing), a fresh tensor on
+    shard s's device."""
+    return [_zip_walk(tree, pspecs,
+                      lambda _, t, ps, s=s: M.piece(t, ps, mesh, s))
+            for s in range(mesh.size)]
+
+
+def _leaf_parts(shards: Sequence[Pytree], path) -> List[torch.Tensor]:
+    out = []
+    for tree in shards:
+        for k in path:
+            tree = tree[k]
+        out.append(tree)
+    return out
+
+
+def _whole_shape(part_shape: Sequence[int], pspec: PSpec, mesh: Mesh
+                ) -> Tuple[int, ...]:
+    """The whole leaf's shape from one shard's block shape."""
+    shape = list(part_shape)
+    for d, e in enumerate(pspec):
+        shape[d] *= axis_size(mesh, _norm(e)) if e is not None else 1
+    return tuple(shape)
+
+
+def unshard_leaf(shards: Sequence[Pytree], path: Sequence[str], pspec: PSpec,
+                 mesh: Mesh, device) -> torch.Tensor:
+    """The leaf at ``path`` whole from the shards' trees, a fresh tensor
+    on ``device``."""
+    parts = _leaf_parts(shards, path)
+    return M.assemble(parts, _whole_shape(parts[0].shape, pspec, mesh), pspec,
+                      mesh, device)
+
+
+def unshard_tree(shards: Sequence[Pytree], pspecs: Pytree, mesh: Mesh,
+                 device=None) -> Pytree:
+    """Inverse of ``shard_tree``: the whole tree, each leaf a fresh
+    tensor on ``device`` (default shard 0's)."""
+    dev = mesh.devices[0] if device is None else device
+    return _zip_walk(shards[0], pspecs, lambda path, _, ps: unshard_leaf(
+        shards, path, ps, mesh, dev))
+
+
+@dataclass(frozen=True)
+class TreeSharding:
+    """A mesh and a tree of PartitionSpecs (a path it lacks is
+    replicated): the port's counterpart of a tree of NamedShardings."""
+    mesh: Mesh
+    pspecs: Pytree
+
+    def pspec(self, path: Sequence[str]) -> PSpec:
+        t = self.pspecs
+        for k in path:
+            if not isinstance(t, dict) or k not in t:
+                return ()
+            t = t[k]
+        return t if isinstance(t, tuple) else ()
 
 
 def shard_params(params: Pytree, specs: Pytree, mesh: Mesh,
                  policy: Policy) -> List[Pytree]:
-    """One parameter tree per shard, each leaf shard s's piece along the
-    dims its spec puts on "model" (the whole leaf where it has none), a
-    fresh tensor on shard s's device."""
-    tp = mesh.size
-    pspecs = param_pspecs(specs, mesh, policy)
-
-    def walk(p, ps, s):
-        if isinstance(p, dict):
-            return {k: walk(p[k], ps[k], s) for k in p}
-        return _piece(p, _model_dims(ps), s, tp, mesh.devices[s])
-
-    return [walk(params, pspecs, s) for s in range(tp)]
+    """One parameter tree per shard by ``policy``'s specs (``shard_tree``):
+    on a serve submesh (1, tp) each leaf shard s's piece along the dims
+    its spec puts on "model" (the whole leaf where it has none)."""
+    return shard_tree(params, param_pspecs(specs, mesh, policy), mesh)
 
 
 def unshard_params(shards: Sequence[Pytree], specs: Pytree, mesh: Mesh,
                    policy: Policy) -> Pytree:
-    """Inverse of ``shard_params``: the whole tree on shard 0's device
-    (replicated leaves from shard 0)."""
-    pspecs = param_pspecs(specs, mesh, policy)
-    dev0 = mesh.devices[0]
-
-    def walk(parts, ps):
-        if isinstance(parts[0], dict):
-            return {k: walk([p[k] for p in parts], ps[k]) for k in parts[0]}
-        t = [p.to(dev0) for p in parts]
-        dims = _model_dims(ps)
-        if not dims:
-            return t[0].clone()
-        assert len(dims) == 1, dims
-        return torch.cat(t, dim=dims[0])
-
-    return walk(list(shards), pspecs)
+    """Inverse of ``shard_params``: the whole tree on shard 0's device."""
+    return unshard_tree(shards, param_pspecs(specs, mesh, policy), mesh)
 
 
 def tree_bytes(tree: Pytree) -> int:

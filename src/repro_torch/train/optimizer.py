@@ -25,7 +25,7 @@ on dicts), so sums over leaves add in the reference's order.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -71,13 +71,26 @@ def tree_map(fn: Callable, tree: Pytree, *rest: Pytree) -> Pytree:
 UPDATE_CLIP = 3.0
 
 
-def _q8_enc(x: torch.Tensor, sqrt_domain: bool = False
-            ) -> Dict[str, torch.Tensor]:
-    if sqrt_domain:
-        x = torch.sqrt(torch.clamp(x, min=0.0))
-    s = torch.amax(torch.abs(x), dim=-1, keepdim=True) / 127.0 + 1e-20
+def _q8_prep(x: torch.Tensor, sqrt_domain: bool = False) -> torch.Tensor:
+    return torch.sqrt(torch.clamp(x, min=0.0)) if sqrt_domain else x
+
+
+def _q8_row_amax(x: torch.Tensor) -> torch.Tensor:
+    return torch.amax(torch.abs(x), dim=-1, keepdim=True)
+
+
+def _q8_from_amax(x: torch.Tensor, amax: torch.Tensor
+                  ) -> Dict[str, torch.Tensor]:
+    """int8 {"q", "s"} of the prepared ``x`` from its rows' absmax."""
+    s = amax / 127.0 + 1e-20
     q = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
     return {"q": q, "s": s}
+
+
+def _q8_enc(x: torch.Tensor, sqrt_domain: bool = False
+            ) -> Dict[str, torch.Tensor]:
+    x = _q8_prep(x, sqrt_domain)
+    return _q8_from_amax(x, _q8_row_amax(x))
 
 
 def _q8_dec(e: Dict[str, torch.Tensor], sqrt_domain: bool = False
@@ -109,6 +122,33 @@ def adamw_init(params: Pytree, quant_moments: bool = False
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def bias_corrections(count: torch.Tensor, cfg: AdamWConfig
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """1 - b1 ** count and 1 - b2 ** count in float32."""
+    cf = count.float()
+    return (1.0 - torch.pow(torch.tensor(cfg.b1, device=cf.device), cf),
+            1.0 - torch.pow(torch.tensor(cfg.b2, device=cf.device), cf))
+
+
+def adamw_leaf(g, m, v, w, cfg: AdamWConfig, b1c, b2c, lr, quant: bool):
+    """One leaf's AdamW step on its float32 master ``w``: (new master,
+    new m, new v), the moments float32 (not yet re-encoded when
+    ``quant``)."""
+    if quant:
+        m = _q8_dec(m)
+        v = _q8_dec(v, sqrt_domain=True)
+    g32 = g.float()
+    m = cfg.b1 * m + (1 - cfg.b1) * g32
+    v = cfg.b2 * v + (1 - cfg.b2) * g32 * g32
+    mh = m / b1c
+    vh = v / b2c
+    norm = mh / (torch.sqrt(vh) + cfg.eps)
+    if quant:
+        norm = torch.clamp(norm, -UPDATE_CLIP, UPDATE_CLIP)
+    step = norm + cfg.weight_decay * w
+    return w - lr * step, m, v
+
+
 def adamw_update(grads: Pytree, state: Dict[str, Pytree], params: Pytree,
                  cfg: AdamWConfig, lr: torch.Tensor, *, quant: bool = False
                  ) -> Tuple[Pytree, Dict[str, Pytree]]:
@@ -118,24 +158,10 @@ def adamw_update(grads: Pytree, state: Dict[str, Pytree], params: Pytree,
     autograd; no input is modified."""
     with torch.no_grad():
         count = state["count"] + 1
-        cf = count.float()
-        b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, device=cf.device), cf)
-        b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, device=cf.device), cf)
+        b1c, b2c = bias_corrections(count, cfg)
 
         def upd(g, m, v, w, p):
-            if quant:
-                m = _q8_dec(m)
-                v = _q8_dec(v, sqrt_domain=True)
-            g32 = g.float()
-            m = cfg.b1 * m + (1 - cfg.b1) * g32
-            v = cfg.b2 * v + (1 - cfg.b2) * g32 * g32
-            mh = m / b1c
-            vh = v / b2c
-            norm = mh / (torch.sqrt(vh) + cfg.eps)
-            if quant:
-                norm = torch.clamp(norm, -UPDATE_CLIP, UPDATE_CLIP)
-            step = norm + cfg.weight_decay * w
-            w = w - lr * step
+            w, m, v = adamw_leaf(g, m, v, w, cfg, b1c, b2c, lr, quant)
             if quant:
                 m, v = _q8_enc(m), _q8_enc(v, sqrt_domain=True)
             return w.to(p.dtype), m, v, w
@@ -165,14 +191,20 @@ def global_norm(tree: Pytree) -> torch.Tensor:
                           for x in leaves(tree)))
 
 
+def clip_by_norm(grads: Pytree, norm: torch.Tensor, max_norm: float
+                 ) -> Pytree:
+    """The grads scaled by min(1, max_norm / norm), each in its dtype."""
+    with torch.no_grad():
+        scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12),
+                            max=1.0)
+        return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads)
+
+
 def clip_by_global_norm(grads: Pytree, max_norm: float
                         ) -> Tuple[Pytree, torch.Tensor]:
     with torch.no_grad():
         norm = global_norm(grads)
-        scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12),
-                            max=1.0)
-        return tree_map(lambda g: (g.float() * scale).to(g.dtype),
-                        grads), norm
+    return clip_by_norm(grads, norm, max_norm), norm
 
 
 # ---------------------------------------------------------------------
@@ -183,24 +215,35 @@ def ef8_init(params: Pytree) -> Pytree:
     return tree_map(_zeros32, params)
 
 
-def _quant_roundtrip(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    scale = torch.clamp(torch.abs(x).max(), min=1e-12) / 127.0
+def _quant_roundtrip(x: torch.Tensor, amax: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 q and the scale of ``x``: one scale from the absmax of the
+    whole leaf (``amax`` when given: a sharded leaf's, over its shards)."""
+    if amax is None:
+        amax = torch.abs(x).max()
+    scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
+
+
+def ef8_leaf(g: torch.Tensor, e: torch.Tensor,
+             amax: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dequantized grad in g's dtype, new float32 error) of one leaf;
+    ``amax``: the absmax of the whole leaf's g + e, where the leaf is
+    sharded."""
+    x = g.float() + e
+    q, scale = _quant_roundtrip(x, amax)
+    deq = q.float() * scale
+    return deq.to(g.dtype), x - deq
 
 
 def ef8_compress(grads: Pytree, error: Pytree) -> Tuple[Pytree, Pytree]:
     """Quantize (grad + error) to int8; returns (dequantized grads in
     each grad's dtype, new float32 error). The int8 tensor is the wire
     format of the data-parallel reduce."""
-    def leaf(g, e):
-        x = g.float() + e
-        q, scale = _quant_roundtrip(x)
-        deq = q.float() * scale
-        return deq.to(g.dtype), x - deq
-
     with torch.no_grad():
-        outs = tree_map(leaf, grads, error)
+        outs = tree_map(ef8_leaf, grads, error)
     return _pick(outs, 0), _pick(outs, 1)
 
 

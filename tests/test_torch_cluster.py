@@ -254,7 +254,7 @@ def test_port_imports_with_jax_blocked():
         "assert not bad, bad\n"
         "need = {'repro_torch.train.optimizer', "
         "'repro_torch.train.train_loop', 'repro_torch.train.checkpoint', "
-        "'repro_torch.launch.train'}\n"
+        "'repro_torch.launch.train', 'repro_torch.train.sharded'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -1163,6 +1163,74 @@ def test_train_step_card_matches_cpu(card, arch):
     walk(pc, pg)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-360m", "mixtral-8x22b"])
+@pytest.mark.parametrize("shape", [(2, 1), (4, 1), (2, 2)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("opts", [{}, dict(grad_accum=2,
+                                           compress_grads=True,
+                                           quant_moments=True)],
+                         ids=["default", "all-switches"])
+def test_sharded_train_step_card_matches_cpu(card, arch, shape, opts):
+    """One make_sharded_train_step step of reduced float32 smollm-360m
+    and mixtral-8x22b, every shard of the mesh on the card, against the
+    one-device make_train_step on the CPU from the same parameters and
+    batch: loss and grad norm within 1e-4 relative, parameters within
+    2.1 lr (test_train_step_card_matches_cpu's tolerances); the state
+    round-trips through a sharded checkpoint onto one card shard."""
+    import dataclasses
+    import math
+    import tempfile
+    from repro_torch import bridge
+    from repro_torch import train as T
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import zoo
+    from repro_torch.train import sharded as SH
+    cfg = dataclasses.replace(reduced(ARCHS[arch]), dtype="float32")
+    g = torch.Generator().manual_seed(0)
+
+    def draw(t):
+        if isinstance(t, dict):
+            return {k: draw(v) for k, v in t.items()}
+        if t.init in ("zeros", "ones"):
+            return torch.full(t.shape, float(t.init == "ones"))
+        scale = (0.3 / math.sqrt(t.shape[-2]) if t.init == "fan_in"
+                 else t.scale)
+        return scale * torch.randn(t.shape, generator=g)
+
+    params = draw(bridge.param_specs(cfg))
+    toks = torch.randint(0, cfg.vocab_size, (4, 33), generator=g,
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    tc = T.TrainConfig(adamw=T.AdamWConfig(lr=3e-3), warmup_steps=0,
+                       total_steps=10, **opts)
+    api = zoo.build(cfg)
+    ref, mc = T.make_train_step(api, tc)(T.init_state(params, tc), batch)
+    mesh = M.make_mesh(*shape, devices=["cuda"] * (shape[0] * shape[1]))
+    step = SH.make_sharded_train_step(api, tc, mesh)
+    shards = SH.shard_state(T.init_state(bridge.tree_to(params, "cuda"),
+                                         tc), step.sharding)
+    new, mg = step(shards, {k: v.cuda() for k, v in batch.items()})
+    for k in ("loss", "grad_norm"):
+        assert abs(float(mg[k]) - float(mc[k])) <= 1e-4 * abs(float(mc[k]))
+    lr = float(mc["lr"])
+    got = SH.unshard_state(new, step.sharding, "cpu")
+    for a, b in zip(T.optimizer.leaves(ref.params),
+                    T.optimizer.leaves(got.params)):
+        assert (a - b).abs().max().item() <= 2.1 * lr
+    with tempfile.TemporaryDirectory() as d:
+        T.save_checkpoint(d, [s.as_dict() for s in new], 1,
+                          shardings=step.sharding)
+        one = M.make_mesh(1, 1, devices=["cuda"])
+        back = T.restore_checkpoint(
+            d, shardings=SH.state_sharding(api.specs, one, tc))
+    assert len(back) == 1
+    for a, b in zip(T.optimizer.leaves(got.as_dict()),
+                    T.optimizer.leaves(back[0])):
+        assert b.device.type == "cuda" and torch.equal(a, b.cpu())
+
+
 # ---------------------------------------------------------------------------
 # the split merge: inside the last split block, and the standalone kernel
 # ---------------------------------------------------------------------------

@@ -353,7 +353,7 @@ def test_checkpoints_cross_both_ways(tmp_path):
     js = _bf16_jax_state()
     jd, td = str(tmp_path / "jax"), str(tmp_path / "port")
     jckpt.save_checkpoint(jd, js.as_dict(), 1)
-    restored = tckpt.restore_checkpoint(jd)
+    restored = tckpt.restore_checkpoint(jd, device="cpu")
     _same_bits(restored, js.as_dict())
     assert _flat(restored)[("params", "embed", "tok")].dtype \
         == torch.bfloat16
@@ -379,11 +379,12 @@ def test_checkpoint_keeps_latest_k(tmp_path):
         tckpt.save_checkpoint(d, {"x": torch.ones(3) * s}, s, keep=3)
     assert tckpt.all_steps(d) == [3, 4, 5] == jckpt.all_steps(d)
     assert tckpt.latest_step(d) == 5
-    assert torch.equal(tckpt.restore_checkpoint(d)["x"], torch.full((3,), 5.))
+    assert torch.equal(tckpt.restore_checkpoint(d, device="cpu")["x"],
+                       torch.full((3,), 5.))
     assert not any(n.endswith(".tmp") for n in os.listdir(d))
     assert tckpt.latest_step(str(tmp_path / "none")) is None
     with pytest.raises(FileNotFoundError):
-        tckpt.restore_checkpoint(str(tmp_path / "none"))
+        tckpt.restore_checkpoint(str(tmp_path / "none"), device="cpu")
 
 
 def test_step_from_restored_state_is_bit_exact(tmp_path):
@@ -401,7 +402,7 @@ def test_step_from_restored_state_is_bit_exact(tmp_path):
         state, _ = step(state, batch)
     tckpt.save_checkpoint(str(tmp_path), state.as_dict(), int(state.step))
     restored = tloop.TrainState.from_dict(
-        tckpt.restore_checkpoint(str(tmp_path)))
+        tckpt.restore_checkpoint(str(tmp_path), device="cpu"))
     _same_bits(restored.as_dict(), state.as_dict())
     s1, m1 = step(state, batch)
     s2, m2 = step(restored, batch)
@@ -487,7 +488,7 @@ def test_cli_trains_like_make_train_step_and_resumes(tmp_path, capsys):
         ref, _ = step(ref, next(data))
     _same_bits(state.as_dict(), ref.as_dict())
     assert tckpt.all_steps(d) == [3]
-    _same_bits(tckpt.restore_checkpoint(d), state.as_dict())
+    _same_bits(tckpt.restore_checkpoint(d, device="cpu"), state.as_dict())
 
     resumed = tcli.main(CLI + ["--steps", "5", "--ckpt-dir", d])
     out = capsys.readouterr().out
