@@ -147,6 +147,25 @@ From the root of a checkout. It
    cut's shape is held against its plain version and timed beside its
    bound and SDPA. The training phase's model-FLOP share also comes from
    ``model_flops_for``.
+15. (right after the dry-run phase) the three examples of
+   ``examples/torch/``, each driven through its ``run`` (or its
+   ``main``): the quickstart at its own size (reduced smollm-360m,
+   bf16), in float32 at that size with the card's lines equal to the
+   CPU's token for token, and at full smollm-360m width and depth with
+   the example's EngineConfig and 8 requests (reuse > 0.4, 30 of 36
+   prompt tokens cached on every request after the first, paged
+   launches = layers x dispatches, the wall); distributed serving at
+   full width and depth, 4 instances on the one card, E2 then
+   round-robin then the failover (finished counts, prefill-saved, E2 >=
+   RR, simulated avg and p99, each policy's host wall, the rerouted
+   count, paged launches = layers x the eight engines' dispatches); and
+   the train example's default variant and ``--full`` (12 layers at
+   smollm-360m width, 8 x 512) through its main, 120 steps each, and
+   ``--full`` again through ``run`` with parameters drawn at
+   TRAIN_FAN_IN_GAIN (under the reference's scale that stack's loss
+   stays flat; its assertion holds on the batches): first and final
+   loss, the restored checkpoint step, step wall, tokens/s, peak memory
+   and checkpoint bytes.
 
 Any failed check exits non-zero. The last line is the JSON result.
 Exits non-zero with no result when no CUDA device is present or when
@@ -157,9 +176,11 @@ import contextlib
 import functools
 import gc
 import importlib
+import importlib.util
 import io
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -3890,6 +3911,204 @@ def dryrun_phase(torch, configs):
     print(f"dryrun: card {card}")
 
 
+# ---------------------------------------------------------------------------
+# the three examples of examples/torch/
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ROOT / "examples" / "torch"
+EX_STEPS = 120          # the train example's default --steps
+EX_PROMPT, EX_SHARED = 36, 30       # the quickstart's prompt, its system part
+
+
+def load_example(name):
+    """``examples/torch/<name>.py`` as a module of its own."""
+    spec = importlib.util.spec_from_file_location(f"torch_example_{name}",
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def relative_ids(lines):
+    """"req <id>:" as the offset from the first printed id (request ids
+    come from a process-wide counter)."""
+    ids = [int(m) for m in re.findall(r"^req (\d+):", "\n".join(lines),
+                                      re.MULTILINE)]
+    return [re.sub(r"^req (\d+):", lambda m: f"req +{int(m[1]) - ids[0]}:",
+                   ln) for ln in lines]
+
+
+def peak_gib(torch, dev):
+    return (torch.cuda.max_memory_allocated() / 2 ** 30 if dev == "cuda"
+            else None)
+
+
+def reset_peak(torch, dev):
+    sync(torch, dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def ex_quickstart(torch, PA, configs, bridge, qs, cfg, params, dev):
+    """The quickstart at its own size (its main), in float32 at that size
+    card == CPU line for line, and at ``cfg``'s width with the example's
+    EngineConfig and 8 requests: reuse, cached counts and launches."""
+    import dataclasses
+    print("examples: quickstart at its own size (reduced, bf16):")
+    qs.main(["--device", dev])
+    small = dataclasses.replace(
+        configs.reduced(configs.get_config("smollm-360m")), dtype="float32")
+    p32 = bridge.init_params(small, torch.Generator().manual_seed(0), "cpu")
+    cpu = relative_ids(qs.run(small, "cpu", p32)["lines"])
+    card = relative_ids(qs.run(small, dev, bridge.tree_to(p32, dev))["lines"])
+    check(card == cpu, f"quickstart float32: card {card} != CPU {cpu}")
+    print(f"examples: quickstart float32 reduced, card == CPU on all "
+          f"{len(cpu)} lines, output tokens included")
+
+    reset_peak(torch, dev)
+    PA.paged_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    res = qs.run(cfg, dev, params)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = PA.paged_decode_attention.launches
+    print("\n".join(res["lines"]))
+    done = sorted(res["done"], key=lambda r: r.request_id)
+    eng = res["engine"]
+    disp = eng.stats["model_dispatches"]
+    check(res["saved"] > 0.4, f"quickstart saved {res['saved']}")
+    check(len(done) == 8 and all(r.prompt_len == EX_PROMPT for r in done)
+          and [r.cached_len for r in done[1:]] == [EX_SHARED] * 7,
+          "quickstart: cached "
+          f"{[(r.cached_len, r.prompt_len) for r in done]}")
+    check_outputs("quickstart", done, cfg.vocab_size)
+    check(launches > 0 and launches == cfg.n_layers * disp,
+          f"quickstart: paged launches {launches} != {cfg.n_layers} x "
+          f"{disp} dispatches")
+    print("examples: quickstart " + json.dumps(dict(
+        layers=cfg.n_layers, d_model=cfg.d_model, dtype=cfg.dtype,
+        wall_s=wall, saved=res["saved"], engine_steps=eng.stats["iterations"],
+        model_dispatches=disp, paged_launches=launches,
+        peak_mem_gib=peak_gib(torch, dev))))
+
+
+def ex_distributed(torch, PA, ds, cfg, params, dev):
+    """The distributed example at ``cfg``'s width: 4 instances on the one
+    device, E2 then round-robin, then the failover; launches = layers x
+    the dispatches of all eight engines."""
+    reset_peak(torch, dev)
+    PA.paged_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    res = ds.run(cfg, dev, params)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = PA.paged_decode_attention.launches
+    print("\n".join(res["lines"]))
+    out, disp = {}, 0
+    for policy, r in res["results"].items():
+        cl = r["cluster"]
+        disp += sum(e.stats["model_dispatches"] for e in cl.engines.values())
+        check(r["done"] == 24, f"distributed {policy}: {r['done']}/24")
+        check_outputs(f"distributed {policy}", cl.finished, cfg.vocab_size)
+        out[policy] = dict(finished=r["done"], prefill_saved=r["reuse_frac"],
+                           avg_s=r["avg_lat"], p99_s=r["p99_lat"],
+                           host_wall_s=r["wall"])
+    e2, rr = res["results"]["e2"], res["results"]["rr"]
+    check(e2["reuse_frac"] >= rr["reuse_frac"], "distributed: E2 < RR")
+    check(all(r.state.value == "finished" for r in res["extra"]),
+          "distributed: an extra request did not finish")
+    check(launches > 0 and launches == cfg.n_layers * disp,
+          f"distributed: paged launches {launches} != {cfg.n_layers} x "
+          f"{disp} dispatches")
+    print("examples: distributed " + json.dumps(dict(
+        layers=cfg.n_layers, d_model=cfg.d_model, policies=out,
+        e2_at_least_rr=True, rerouted=res["rerouted"],
+        extra_finished=len(res["extra"]), wall_s=wall,
+        model_dispatches=disp, paged_launches=launches,
+        peak_mem_gib=peak_gib(torch, dev))))
+
+
+def ex_train_row(torch, res, batch, seq, dev):
+    """first / final loss, the restored step, step wall (median and
+    spread of the 20-step spans), tokens/s, peak and checkpoint bytes."""
+    check(res["restored_step"] == res["half"],
+          f"train: restored step {res['restored_step']} != {res['half']}")
+    s = spread(res["step_s"]) if res["step_s"] else None
+    return dict(first_loss=res["first_loss"], final_loss=res["final"],
+                restored_step=res["restored_step"], step_s=s,
+                tokens_per_s=batch * seq / s["median"] if s else None,
+                peak_mem_gib=peak_gib(torch, dev),
+                ckpt_bytes=res["ckpt_bytes"])
+
+
+def ex_train(torch, bridge, tt, dev, steps):
+    """The train example's default variant and ``--full`` (12 layers at
+    smollm-360m's width, 8 x 512) through its main, at ``steps`` steps;
+    then ``--full`` through its ``run`` with parameters drawn at
+    TRAIN_FAN_IN_GAIN. Under the reference's scale the 12-layer stack's
+    loss stays flat (its assertion holds on the batches, not on
+    training: PERF.md, ROADMAP queue 3); at the gain it trains."""
+    for flags in ([], ["--full"]):
+        reset_peak(torch, dev)
+        print(f"examples: train_smollm {' '.join(flags) or 'default'}:")
+        res = tt.main(flags + ["--steps", str(steps), "--device", dev])
+        cfg, batch, seq = tt.variant(bool(flags))
+        print(f"examples: train {' '.join(flags) or 'default'} "
+              + json.dumps(dict(
+                  layers=cfg.n_layers, d_model=cfg.d_model, batch=batch,
+                  seq=seq, steps=steps,
+                  **ex_train_row(torch, res, batch, seq, dev))))
+        del res
+        gc.collect()
+
+    cfg, batch, seq = tt.variant(True)
+    params = train_params(torch, bridge, cfg, 0, dev)
+    reset_peak(torch, dev)
+    print(f"examples: train_smollm --full through run, parameters drawn at "
+          f"{TRAIN_FAN_IN_GAIN} of the reference's fan_in scale:")
+    res = tt.run(cfg, dev, steps, batch, seq, params=params)
+    del params
+    print("\n".join(res["lines"]))
+    print("examples: train --full at the gain " + json.dumps(dict(
+        layers=cfg.n_layers, d_model=cfg.d_model, batch=batch, seq=seq,
+        steps=steps, fan_in_gain=TRAIN_FAN_IN_GAIN,
+        **ex_train_row(torch, res, batch, seq, dev))))
+
+
+def examples_phase(torch, PA, configs, bridge, dev="cuda", cfg=None,
+                   steps=EX_STEPS, full=None):
+    """The three examples of ``examples/torch/`` on the card: the
+    quickstart (its own size, float32 card == CPU, and ``cfg``, by
+    default smollm-360m at full width and depth), distributed serving at
+    ``cfg`` and the train example's default variant and ``--full``.
+    Rehearses on the CPU with ``dev="cpu"``, a reduced ``cfg``, a
+    small ``full`` (cfg, batch, seq) in place of ``--full``'s and the
+    paged kernel's count bumped by a wrapper."""
+    qs, ds, tt = (load_example(n) for n in ("quickstart",
+                                            "distributed_serving",
+                                            "train_smollm"))
+    if full is not None:
+        tt.variant = lambda f, small=tt.variant(False): full if f else small
+    if cfg is None:
+        cfg = configs.get_config("smollm-360m")
+        check(all(getattr(cfg, k) == v for k, v in TRAIN_WIDTH.items()),
+              "smollm-360m is not at full width")
+    t0 = time.perf_counter()
+    params = bridge.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    ex_quickstart(torch, PA, configs, bridge, qs, cfg, params, dev)
+    ex_distributed(torch, PA, ds, cfg, params, dev)
+    del params
+    gc.collect()
+    t1 = time.perf_counter()
+    ex_train(torch, bridge, tt, dev, steps)
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    print(f"examples: serving took {t1 - t0:.1f}s, training "
+          f"{time.perf_counter() - t1:.1f}s")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3984,6 +4203,11 @@ def main() -> None:
     t0 = time.perf_counter()
     dryrun_phase(torch, configs)
     print(f"dryrun: phase took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    examples_phase(torch, PA, configs, bridge)
+    print(f"examples: phase took {time.perf_counter() - t0:.1f}s; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
+          "allocated after it")
     reference_phase(torch, configs, bridge, zoo, Engine, EngineConfig,
                     Request)
     t0 = time.perf_counter()

@@ -48,11 +48,21 @@ from .mesh import make_host_mesh, visible_devices
 
 def synthetic_batches(vocab: int, batch: int, seq: int, seed: int = 0,
                       n_states: int = 64, branching: int = 4,
-                      device="cpu") -> Iterator[dict]:
+                      device="cuda") -> Iterator[dict]:
     """Markov-chain token stream, the reference's arrays from the same
     numpy seed: each token depends on the previous one through a fixed
     random table, so the loss can fall to ln(branching). Yields
-    {"tokens", "labels"} int32 [batch, seq] on ``device``."""
+    {"tokens", "labels"} int32 [batch, seq] on ``device`` (default the
+    card; it raises where there is none)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to make the "
+                           "batches on the CPU")
+    return _markov_stream(vocab, batch, seq, seed, n_states, branching,
+                          device)
+
+
+def _markov_stream(vocab, batch, seq, seed, n_states, branching, device):
     rng = np.random.default_rng(seed)
     K = min(vocab, n_states)
     support = rng.choice(vocab, size=min(vocab, K * branching),

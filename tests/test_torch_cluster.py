@@ -270,6 +270,10 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)",
 def test_no_jax_or_reference_imports_in_the_port():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    examples = sorted((ROOT / "examples" / "torch").glob("*.py"))
+    assert [f.name for f in examples] == [
+        "distributed_serving.py", "quickstart.py", "train_smollm.py"]
+    files += examples
     assert len(files) > 20
     for f in files:
         text = f.read_text()

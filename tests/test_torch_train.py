@@ -418,12 +418,21 @@ def test_step_from_restored_state_is_bit_exact(tmp_path):
                                                   (49152, 8, 64, 3)])
 def test_synthetic_batches_match_jax(vocab, batch, seq, seed):
     jb = jbatches(vocab, batch, seq, seed)
-    tb = tcli.synthetic_batches(vocab, batch, seq, seed)
+    tb = tcli.synthetic_batches(vocab, batch, seq, seed, device="cpu")
     for _ in range(3):
         j, t = next(jb), next(tb)
         for k in ("tokens", "labels"):
             assert t[k].dtype == torch.int32
             np.testing.assert_array_equal(t[k].numpy(), np.asarray(j[k]))
+
+
+def test_synthetic_batches_default_to_the_card():
+    """Like every entry point of the port, the stream is made on the card
+    unless the caller asks for the CPU, and raises where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcli.synthetic_batches(128, 2, 8)
 
 
 def _jax_stand_in(shape):
@@ -483,7 +492,7 @@ def test_cli_trains_like_make_train_step_and_resumes(tmp_path, capsys):
     ref = tloop.init_state(api.init(torch.Generator().manual_seed(0),
                                     "cpu"), tc)
     step = tloop.make_train_step(api, tc)
-    data = tcli.synthetic_batches(cfg.vocab_size, 4, 32, 0)
+    data = tcli.synthetic_batches(cfg.vocab_size, 4, 32, 0, device="cpu")
     for _ in range(3):
         ref, _ = step(ref, next(data))
     _same_bits(state.as_dict(), ref.as_dict())
