@@ -62,7 +62,20 @@ From the root of a checkout. It
    dispatches, reuse, wall, peak memory and the share of tokens on which
    the two planes agree; then holds each of the two kernels against its
    plain version on every input (shapes, lens, page tables) its plane
-   gave it, times the last of each lane count, and frees the weights;
+   gave it, times the last of each lane count; then, on the same weights
+   (after the TP phase of step 10), profiles one paged fused engine with
+   the cluster simulator's batching (chunk 512, 4096 tokens a step):
+   steps of 1, 2, 4 and 8 distinct 512-token prompts (no reuse) and
+   decode-only steps of 1-32 lanes at contexts near 1024, each step
+   timed by the host clock between synchronizes, one prefill and one
+   decode step also under torch.profiler; fits ``CostModel.fit`` to
+   them, prints the data-sheet and fitted coefficients and each step's
+   wall beside both models' ``batch_time``, checks the paged kernel's
+   launches (layers x dispatches), and runs the port's simulator on
+   ``benchmarks/bench_e2e.py``'s quick Figure 3 grid at 1, 2, 4 and 8
+   times its rates, E2 and round-robin under both models (every request
+   finished, invariants held; avg / p99 latency, TTFT, cache hits and
+   the round-robin / E2 ratios printed); and frees the weights;
 8. serves the MoE models at full width (d 6144, 48/8 heads, D 128, 8
    experts, top 2, bf16, random weights from the seed), cut in depth to
    what the card holds: mixtral-8x22b (d_ff 16384, 12 of 56 layers,
@@ -180,6 +193,7 @@ import importlib.util
 import io
 import json
 import math
+import random
 import re
 import subprocess
 import sys
@@ -1468,10 +1482,280 @@ def mistral_phase(torch, DA, PA, cfg, zoo, Engine, EngineConfig, Request,
     out["tp"] = mistral_tp_phase(torch, DA, PA, cfg, params, Engine,
                                  EngineConfig, Request, gen_workload, flush)
     print(f"tp: mistral-7b TP 1/2/4 took {time.perf_counter() - t0:.1f}s")
+    out["simulator"] = simulator_phase(torch, PA, cfg, params, Engine,
+                                       EngineConfig, Request)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the cluster simulator's cost model, fitted to the engine
+# ---------------------------------------------------------------------------
+
+# One engine on the automatic plane (paged fused) whose batching is the
+# simulator's (SimConfig's chunk 512 and 4096 tokens an iteration), so one
+# engine step is one simulated iteration. The pool holds every prompt
+# the profile admits (~96k tokens), so no step evicts.
+SIM_ECONF = dict(max_context=4352, chunk_size=512, max_batch_tokens=4096,
+                 max_batch_requests=32, page_size=16, capacity_tokens=131072)
+SIM_PREFILL = (1, 2, 4, 8)          # distinct prompts admitted in one step
+SIM_DECODE = (1, 2, 4, 8, 16, 32)   # decode lanes of a decode-only step
+SIM_PROMPT = 512                    # prefill prompts: one chunk each
+SIM_CTX = 1008                      # decode prompts; contexts 1008-1032
+SIM_REPS = 3                        # timed prefill steps a shape
+SIM_STEPS = 8                       # timed decode steps a lane count
+SIM_GEN = 24                        # new tokens of a decode request
+SIM_TRACE = (("prefill", 8), ("decode", 8))     # one profiled step each
+# benchmarks/bench_e2e.py's quick grid (n = max(n // 2, 60), its middle
+# rate), each rate also taken 2, 4 and 8 times
+FIG3_GRID = {"toolbench": (150, 8.0), "agent": (150, 8.0),
+             "programming": (100, 4.0), "videoqa": (100, 2.0),
+             "loogle": (75, 1.0)}
+FIG3_MULTIPLIERS = (1, 2, 4, 8)
+
+
+def timed_step(torch, eng, now, dev):
+    """One ``eng.step(now)`` between two synchronizes, timed by the host
+    clock; its composition is read from the engine's stats deltas."""
+    st = eng.stats
+    before = (st["prefilled_tokens"], st["decode_steps"],
+              st["reused_tokens"])
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    done = eng.step(now)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    return done, dict(wall=wall,
+                      prefilled=st["prefilled_tokens"] - before[0],
+                      decoded=st["decode_steps"] - before[1],
+                      reused=st["reused_tokens"] - before[2])
+
+
+def traced_step(torch, step):
+    """``step()`` (a ``timed_step``) under torch.profiler, device activity
+    only: its result, and the device busy share of its wall, its kernel
+    launches and its costliest kernels. Instrumentation only: the fit's
+    samples are unprofiled steps."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        done, rec = step()
+    kernels = device_kernels(torch, prof)
+    busy_ms = sum(k[0] for k in kernels) / 1e3
+    rec.update(device_busy_ms=busy_ms,
+               device_busy_share=busy_ms / (rec["wall"] * 1e3),
+               launches=sum(k[1] for k in kernels),
+               top=[dict(kernel=k[2][:60], ms=k[0] / 1e3, calls=k[1])
+                    for k in kernels[:6]])
+    return done, rec
+
+
+def profile_engine(torch, eng, Request, vocab, dev, prefill=SIM_PREFILL,
+                   decode=SIM_DECODE, prompt=SIM_PROMPT, ctx=SIM_CTX,
+                   reps=SIM_REPS, steps=SIM_STEPS, gen=SIM_GEN, trace=(),
+                   seed=0):
+    """The paper's offline profiling (App. B) on one engine: timed steps
+    of known composition. Prefill: ``k`` distinct ``prompt``-token
+    prompts admitted together (k x prompt prefill tokens, no decode
+    lane), ``reps`` times a k after one warm-up step; each batch then
+    finishes in one untimed decode step. Decode: ``L`` distinct
+    ``ctx``-token prompts, prefilled untimed, then the first ``steps``
+    decode-only steps with all L lanes after one warm-up. Every prompt
+    starts with its own token, so nothing is reused. ``trace`` ((kind,
+    k or L), ...) adds one more such step of that shape under
+    torch.profiler (``traced_step``), outside the samples. Returns the
+    fit's samples (prefill: (tokens, seconds); decode: (lanes,
+    seconds)), a record of every sampled step (kind, size, wall,
+    composition, decode contexts), the traced steps and the model
+    dispatches the profile made."""
+    rng = random.Random(seed)
+    first = iter(range(1, vocab))
+    trace = dict(trace)
+
+    def prompts(n, length):
+        return [Request(tokens=(next(first),) + tuple(
+            rng.randrange(1, vocab) for _ in range(length - 1)),
+            max_new_tokens=1) for _ in range(n)]
+
+    out = dict(prefill=[], decode=[], records=[], traces={})
+    dispatches = eng.stats["model_dispatches"]
+    clock = [0.0]
+
+    def step(traced=False):
+        def run():
+            done = timed_step(torch, eng, clock[0], dev)
+            clock[0] += 0.01
+            return done
+        return traced_step(torch, run) if traced else run()
+
+    for k in prefill:
+        check(k * prompt <= eng.econf.max_batch_tokens,
+              f"profile: {k} x {prompt} tokens exceed a step")
+        for rep in range(reps + 1 + (trace.get("prefill") == k)):
+            for r in prompts(k, prompt):
+                eng.scheduler.enqueue(r, clock[0])
+            done, rec = step(traced=rep > reps)
+            check(rec["prefilled"] == k * prompt and rec["decoded"] == 0
+                  and rec["reused"] == 0 and not done,
+                  f"profile: prefill step of {k} prompts ran {rec}")
+            if rep > reps:
+                out["traces"]["prefill"] = dict(x=k * prompt, **rec)
+            elif rep:
+                out["prefill"].append((k * prompt, rec["wall"]))
+                out["records"].append(dict(kind="prefill", x=k * prompt,
+                                           **rec))
+            done, rec = step()
+            check(len(done) == k and rec["decoded"] == k
+                  and rec["prefilled"] == 0,
+                  f"profile: {k} one-token requests did not finish")
+    for lanes in decode:
+        reqs = prompts(lanes, ctx)
+        for r in reqs:
+            r.max_new_tokens = gen
+            eng.scheduler.enqueue(r, clock[0])
+        full, finished = 0, 0
+        while finished < lanes:
+            ctxs = [r.prompt_len + len(r.output_tokens) for r in reqs]
+            traced = trace.get("decode") == lanes and full == steps + 1
+            done, rec = step(traced)
+            finished += len(done)
+            if traced:
+                check(rec["prefilled"] == 0 and rec["decoded"] == lanes,
+                      f"profile: the traced {lanes}-lane step ran {rec}")
+                out["traces"]["decode"] = dict(x=lanes,
+                                               ctx=sum(ctxs) / lanes, **rec)
+            if rec["prefilled"] == 0 and rec["decoded"] == lanes:
+                if 0 < full <= steps:
+                    out["decode"].append((lanes, rec["wall"]))
+                    out["records"].append(dict(
+                        kind="decode", x=lanes,
+                        ctx=sum(ctxs) / lanes, **rec))
+                full += 1
+        check(full > steps + (trace.get("decode") == lanes),
+              f"profile: {lanes} lanes ran {full} decode-only steps")
+        check(all(r.state.value == "finished" for r in reqs),
+              f"profile: a {lanes}-lane request did not finish")
+    out["dispatches"] = eng.stats["model_dispatches"] - dispatches
+    return out
+
+
+def coefficients(cm):
+    return {k: getattr(cm, k) for k in ("prefill_a", "prefill_b",
+                                        "decode_a", "decode_b")}
+
+
+def fig3_grid(S, cost_models, gen_workload, poisson_arrivals,
+              assign_arrivals, grid=FIG3_GRID, multipliers=FIG3_MULTIPLIERS,
+              instances=4):
+    """benchmarks/bench_e2e.py's Figure 3 runs through the port's
+    simulator module ``S``: each workload of ``grid`` at each multiple of
+    its rate, E2 and round-robin on ``instances`` instances (workload seed
+    3, arrival seed 7), under each of ``cost_models`` ({label:
+    CostModel}, put in place of ``S.cost_model_for``). Every request must
+    finish and none fail, and the simulator's invariants hold after each
+    run. Returns one row a (label, workload, multiplier)."""
+    import copy
+    from unittest import mock
+    rows = []
+    for label, cm in cost_models.items():
+        def model_for(model, chips=1, cm=cm):
+            check(model == cm.model.name and chips == 1,
+                  f"fig3: a {model} x {chips} cost model was asked for")
+            return copy.deepcopy(cm)
+        with mock.patch.object(S, "cost_model_for", model_for):
+            for wl, (n, rps) in grid.items():
+                for m in multipliers:
+                    times = poisson_arrivals(n, rps * m, seed=7)
+                    res = {}
+                    for pol in ("e2", "rr"):
+                        reqs = assign_arrivals(gen_workload(wl, n, seed=3),
+                                               times)
+                        sim = S.Simulator(S.SimConfig(
+                            num_instances=instances, policy=pol))
+                        got = sim.run(reqs)
+                        check(len(got.finished) == n and not got.failed,
+                              f"fig3 {label} {wl} x{m} {pol}: "
+                              f"{len(got.finished)}/{n} finished, "
+                              f"{len(got.failed)} failed")
+                        sim.check_invariants()
+                        res[pol] = got.summary()
+                    e2, rr = res["e2"], res["rr"]
+                    rows.append(dict(
+                        model=label, workload=wl, n=n, rps=rps * m, mult=m,
+                        **{f"{p}_{k}": res[p][key] for p in ("e2", "rr")
+                           for k, key in (("avg", "avg_latency"),
+                                          ("p99", "p99_latency"),
+                                          ("ttft", "avg_ttft"),
+                                          ("hit", "cache_hit_frac"))},
+                        rr_over_e2_avg=rr["avg_latency"] / e2["avg_latency"],
+                        rr_over_e2_p99=rr["p99_latency"]
+                        / e2["p99_latency"]))
+    return rows
+
+
+def simulator_phase(torch, PA, cfg, params, Engine, EngineConfig, Request,
+                    dev="cuda"):
+    """Profile one engine as the paper's App. B profiles its GPUs, fit
+    the cost model (``CostModel.fit``) to the samples, and run the
+    paper's Figure 3 grid through the port's simulator under the
+    data-sheet and the fitted model. Checks the paged kernel's launches
+    (layers x dispatches), the fit's samples and coefficients, and that
+    every simulated request finished with the invariants holding; the
+    E2 / round-robin ratios are reported."""
+    from repro_torch.core.cost_model import cost_model_for
+    from repro_torch.data import (assign_arrivals, gen_workload,
+                                  poisson_arrivals)
+    from repro_torch.serving import simulator as S
+    t0 = time.perf_counter()
+    eng = Engine(cfg, params, EngineConfig(**SIM_ECONF), device=dev)
+    check(eng.paged and eng.fused, "simulator: the engine is not paged "
+          "and fused")
+    PA.paged_decode_attention.launches = 0
+    prof = profile_engine(torch, eng, Request, cfg.vocab_size, dev,
+                          trace=SIM_TRACE)
+    launches = PA.paged_decode_attention.launches
+    check(launches == cfg.n_layers * prof["dispatches"],
+          f"simulator: paged kernel launches {launches} != {cfg.n_layers} "
+          f"x {prof['dispatches']} dispatches")
+    del eng
+    gc.collect()
+    profile_s = time.perf_counter() - t0
+    check(len(prof["prefill"]) >= 4 and len(prof["decode"]) >= 6,
+          f"simulator: {len(prof['prefill'])} prefill and "
+          f"{len(prof['decode'])} decode samples")
+    sheet = cost_model_for(cfg.name)
+    fitted = cost_model_for(cfg.name)
+    fitted.fit(prof["prefill"], prof["decode"])
+    coef = {"sheet": coefficients(sheet), "fitted": coefficients(fitted)}
+    check(all(math.isfinite(v) and v >= 0
+              for v in coef["fitted"].values()),
+          f"simulator: fitted coefficients {coef['fitted']}")
+    print(f"simulator: profiled {len(prof['records'])} steps "
+          f"({prof['dispatches']} dispatches, {launches} paged launches) in "
+          f"{profile_s:.1f}s; coefficients " + json.dumps(coef))
+    for rec in prof["records"]:
+        if rec["kind"] == "prefill":
+            args, fit = (rec["x"], 0), fitted.prefill_time(rec["x"])
+        else:
+            args, fit = (0, rec["x"], rec["ctx"]), fitted.decode_time(
+                rec["x"])
+        rec.update(sheet_s=sheet.batch_time(*args),
+                   fitted_s=fitted.batch_time(*args),
+                   residual_s=rec["wall"] - fit)
+        print("simulator sample: " + json.dumps(rec))
+    for kind, rec in prof["traces"].items():
+        print(f"simulator trace {kind}: " + json.dumps(rec))
+    t1 = time.perf_counter()
+    rows = fig3_grid(S, {"sheet": sheet, "fitted": fitted}, gen_workload,
+                     poisson_arrivals, assign_arrivals)
+    grid_s = time.perf_counter() - t1
+    for row in rows:
+        print("simulator fig3: " + json.dumps(row))
+    print(f"simulator: {2 * len(rows)} simulations in {grid_s:.1f}s; "
+          f"phase took {time.perf_counter() - t0:.1f}s")
+    return dict(coefficients=coef, records=prof["records"], fig3=rows,
+                traces=prof["traces"], launches=launches)
 
 
 def agreement(outputs):
