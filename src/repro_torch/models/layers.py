@@ -43,7 +43,8 @@ each collective the reference's GSPMD inserts is an explicit call of
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import time
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -297,6 +298,10 @@ def mlp_full(p, cfg, x):
 # per-expert pair counts that size its products) and ``expert_products``
 # (one SwiGLU product per expert hit). Reset and read by chip_smoke.py.
 MOE_STATS = {"calls": 0, "host_syncs": 0, "expert_products": 0}
+# Where each routed call's host sync is recorded as a "moe.sync" span:
+# ``Telemetry.span``, set by a telemetered engine for the length of its
+# model dispatch, else None.
+MOE_SPAN_SINK: Optional[Callable[[str, float], float]] = None
 
 
 def _route(p, cfg, x):
@@ -379,7 +384,12 @@ def _routed(p, cfg, x, first: int = 0):
         return x.new_empty((T, x.shape[-1]))
     flat = tope.reshape(-1)
     order = torch.argsort(flat, stable=True)
+    sink = MOE_SPAN_SINK
+    if sink is not None:
+        t0 = time.perf_counter()
     counts = torch.bincount(flat, minlength=cfg.n_experts).tolist()
+    if sink is not None:
+        sink("moe.sync", t0)
     MOE_STATS["calls"] += 1
     MOE_STATS["host_syncs"] += 1
     tok = torch.div(order, K, rounding_mode="floor")

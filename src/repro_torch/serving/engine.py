@@ -99,7 +99,7 @@ from ..core.radix_tree import PathKey, PrefixSpan
 from ..core.request import Request
 from ..launch import sharding as shard_lib
 from ..launch.mesh import make_serve_mesh
-from ..models import zoo
+from ..models import layers, zoo
 from ..models.transformer import layer_plan
 from .batch import ForwardBatch, ModelWorkerBatch, bucket, lower_arrays
 from .faults import CircuitBreaker, InstanceCrashed
@@ -295,6 +295,7 @@ class Engine:
              "seed_aliased_pages": 0, "seed_copied_pages": 0,
              "aborted": 0, "model_dispatches": 0,
              "fused_iterations": 0, "fused_padded_tokens": 0,
+             "fused_slot_tokens": 0,
              "demoted_tokens": 0, "restored_tokens": 0,
              "restore_failures": 0, "demote_dispatches": 0,
              "restore_dispatches": 0, "demote_batches": 0,
@@ -438,6 +439,8 @@ class Engine:
                else ts[0]).cpu().numpy()
         if self.mesh is not None:
             self.stats["collective_seconds"] += time.perf_counter() - t0
+        if self.telemetry is not None:
+            self.telemetry.span("engine.fetch", t0)
         return out
 
     def _route(self, s: int, pidx: np.ndarray, sidx: np.ndarray):
@@ -1139,8 +1142,18 @@ class Engine:
         Order on the card: admissions (CoW page copies, demote gathers
         and their copies), the restore scatter, the prefetch scatter
         (copy stream), the model; then, after the model, the prefetch
-        publish and the demote drains."""
+        publish and the demote drains.
+
+        With telemetry attached, each phase is a host span (module
+        ``telemetry``): ``sched.form_batch``, ``engine.admit``, then
+        ``engine.lower``, ``model.dispatch`` and ``engine.fetch`` in the
+        paged dispatches, and ``sched.complete``."""
+        tel = self.telemetry
+        if tel is not None:
+            t = time.perf_counter()
         batch = self.scheduler.form_batch(now)
+        if tel is not None:
+            t = tel.span("sched.form_batch", t)
         if not batch.items and not self.scheduler.prefetch_enabled:
             if self.faults is not None \
                     and self.faults.take_crash(self.econf.instance_id):
@@ -1159,6 +1172,8 @@ class Engine:
             # scatter BEFORE the model reads any lane's KV
             if self._pending_restore:
                 self._flush_restores()
+            if tel is not None:
+                tel.span("engine.admit", t)
 
         # speculative restores issue AFTER admission (no record is in
         # flight while _admit_paged walks tables) and BEFORE the model
@@ -1187,6 +1202,8 @@ class Engine:
                     self._decode_batch_paged(dec)
                 elif dec:
                     self._decode_batch_dense(dec)
+            if tel is not None:
+                t = time.perf_counter()
             finished = self.scheduler.complete_iteration(batch, now)
             for r in newly_prefilled:
                 self._store_prefix(r, now)
@@ -1201,6 +1218,8 @@ class Engine:
                 if self.draft is not None:
                     self.draft.release(r.request_id)
                     self._observe_spec(r, lv, now)
+            if tel is not None:
+                tel.span("sched.complete", t)
         # land this step's speculative restores (the publish runs after
         # _store_prefix so a same-step split cancels cleanly first),
         # then the demote copies
@@ -1321,6 +1340,9 @@ class Engine:
                     self._decode_batch_paged(
                         [it.request for it in plain_dec])
                 return []
+        tel = self.telemetry
+        if tel is not None:
+            t = time.perf_counter()
         n_pref = len(chunk_items)
         Lc = bucket(n_pref + len(spec_lanes))
         Cb = bucket(max([it.chunk_tokens for it in chunk_items]
@@ -1364,21 +1386,30 @@ class Engine:
                   "chunk_page_table": fb.chunk_page_table,
                   "dec_tokens": fb.dec_tokens, "dec_pos": fb.dec_pos,
                   "dec_page_table": fb.dec_page_table}
+        if tel is not None:
+            t = self._begin_dispatch(tel, t)
+        try:
+            if spec_lanes:
+                nxt, cpred, self.pages = self.api.mixed_paged_spec(
+                    self.params, self.pages, inputs, plan=self.plan)
+            else:
+                nxt, self.pages = self.api.mixed_paged(
+                    self.params, self.pages, inputs, plan=self.plan)
+        finally:
+            if tel is not None:
+                self._end_dispatch(tel, t)
         if spec_lanes:
-            nxt, cpred, self.pages = self.api.mixed_paged_spec(
-                self.params, self.pages, inputs, plan=self.plan)
             # one device-to-host copy of both results (waits for the card)
             both = self._fetch(nxt, cpred)
             nxt, cpred = both[:nxt.numel()], both[nxt.numel():].reshape(
                 cpred.shape)
         else:
-            nxt, self.pages = self.api.mixed_paged(
-                self.params, self.pages, inputs, plan=self.plan)
             nxt = self._fetch(nxt)          # waits for the device
         self.stats["model_dispatches"] += 1
         self.stats["fused_iterations"] += 1
         self.stats["fused_padded_tokens"] += (
             Lc * Cb + Ld - int(clen.sum()) - len(plain_dec))
+        self.stats["fused_slot_tokens"] += Lc * Cb + Ld
         newly_prefilled: List[Request] = []
         for i, it in enumerate(chunk_items):
             r = it.request
@@ -1419,6 +1450,20 @@ class Engine:
             self.stats["spec_verify_lanes"] += len(spec_lanes)
         return newly_prefilled
 
+    @staticmethod
+    def _begin_dispatch(tel, t: float) -> float:
+        """Close the ``engine.lower`` span begun at ``t`` and open the
+        model dispatch: the routed MoE's host syncs record into ``tel``
+        until ``_end_dispatch``. Returns the dispatch's start."""
+        t = tel.span("engine.lower", t)
+        layers.MOE_SPAN_SINK = tel.span
+        return t
+
+    @staticmethod
+    def _end_dispatch(tel, t: float) -> None:
+        layers.MOE_SPAN_SINK = None
+        tel.span("model.dispatch", t)
+
     def _observe_spec(self, r: Request, lv: Optional[Dict[str, Any]],
                       now: float) -> None:
         """Terminal speculative observation for one finished request:
@@ -1438,6 +1483,9 @@ class Engine:
     def _decode_batch_paged(self, dec: List[Request]) -> None:
         """Slot/bucket decode: live requests fill the first B lanes of a
         power-of-two bucket; padding lanes write into the scratch page."""
+        tel = self.telemetry
+        if tel is not None:
+            t = time.perf_counter()
         B = len(dec)
         Bb = bucket(B)
         tokens = np.zeros(Bb, np.int32)
@@ -1454,10 +1502,16 @@ class Engine:
                               np.zeros((0, self._pages_per_req), np.int32),
                               tokens, pos, pt)
         fb = ForwardBatch(*self._lower(wb.arrays()))
-        nxt, self.pages = self.api.decode_paged(
-            self.params, self.pages,
-            {"tokens": fb.dec_tokens, "pos": fb.dec_pos,
-             "page_table": fb.dec_page_table}, plan=self.plan)
+        if tel is not None:
+            t = self._begin_dispatch(tel, t)
+        try:
+            nxt, self.pages = self.api.decode_paged(
+                self.params, self.pages,
+                {"tokens": fb.dec_tokens, "pos": fb.dec_pos,
+                 "page_table": fb.dec_page_table}, plan=self.plan)
+        finally:
+            if tel is not None:
+                self._end_dispatch(tel, t)
         nxt = self._fetch(nxt)
         for i, r in enumerate(dec):
             self.live[r.request_id]["next"] = int(nxt[i])

@@ -1,7 +1,7 @@
 """Unified telemetry plane (DESIGN.md §12): metrics registry,
 per-request trace timelines, and TTFT/latency attribution.
 
-Three layers, all dependency-free (stdlib only):
+Four layers, all dependency-free (stdlib only):
 
   * ``MetricsRegistry`` — typed counters / gauges / fixed-bucket
     histograms under ONE shared name vocabulary. Component ``stats``
@@ -21,6 +21,13 @@ Three layers, all dependency-free (stdlib only):
     assert against (crash / retry / prefetch records / terminal
     failures), emitted with the same vocabulary by the real
     ``ClusterRuntime`` and the ``Simulator``.
+  * host spans (``Telemetry.spans``): ``(name, t0, t1)`` on
+    ``time.perf_counter()`` seconds, one per phase of the real engine's
+    step (``sched.form_batch``, ``engine.admit``, ``engine.lower``,
+    ``model.dispatch``, ``engine.fetch``, ``sched.complete``) and one per
+    routed MoE host sync (``moe.sync``, inside ``model.dispatch``). The
+    simulator records none; ``snapshot()`` and the Prometheus export do
+    not carry them.
 
 Gating mirrors the ``faults`` pattern (§11): built with
 ``telemetry=None`` (or ``Telemetry(enabled=False)``) every hook is
@@ -58,6 +65,7 @@ measured timestamps, not independent estimates).
 from __future__ import annotations
 
 import json
+import time
 from collections.abc import MutableMapping
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
@@ -577,6 +585,9 @@ class Telemetry:
         self.max_events = max_events
         self._observed: set = set()
         self._dropped_events = 0
+        self.spans: List[Tuple[str, float, float]] = []
+        self.max_spans = 200_000
+        self.dropped_spans = 0
 
     # ---- wiring ---------------------------------------------------------
 
@@ -604,6 +615,20 @@ class Telemetry:
 
     def events_named(self, name: str) -> List[Dict[str, Any]]:
         return [e for e in self.events if e["event"] == name]
+
+    # ---- host spans -----------------------------------------------------
+
+    def span(self, name: str, t0: float) -> float:
+        """Record the host span ``(name, t0, now)``, ``t0`` and now on
+        ``time.perf_counter()``, and return now (the next span's start).
+        Bounded like the event log: past ``max_spans`` the span is
+        counted in ``dropped_spans`` instead."""
+        t1 = time.perf_counter()
+        if len(self.spans) < self.max_spans:
+            self.spans.append((name, t0, t1))
+        else:
+            self.dropped_spans += 1
+        return t1
 
     # ---- traces ---------------------------------------------------------
 

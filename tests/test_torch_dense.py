@@ -331,8 +331,18 @@ def _engines(arch, paged, jit_extend=True):
 
 def _same_engines(jeng, teng):
     assert teng.paged == jeng.paged
+    # the port's one counter more: the fused dispatches' slots, the
+    # padded share's denominator (the reference counts only the pads)
+    assert set(teng.stats) - set(jeng.stats) == {"fused_slot_tokens"}
     for k in teng.stats:
-        assert teng.stats[k] == jeng.stats[k], k
+        if k != "fused_slot_tokens":
+            assert teng.stats[k] == jeng.stats[k], k
+    # (its value is held to each fused dispatch's tensors in
+    # test_torch_spans.py)
+    assert (teng.stats["fused_slot_tokens"] > 0) == \
+        (jeng.stats["fused_iterations"] > 0)
+    assert teng.stats["fused_slot_tokens"] >= \
+        teng.stats["fused_padded_tokens"]
     if not teng.paged:
         assert set(teng.kv_store) == set(jeng.kv_store)
         assert teng.stats["cache_concat_calls"] > 0

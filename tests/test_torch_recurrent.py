@@ -493,8 +493,18 @@ def test_snapshot_reuse_matches_jax_engine(arch):
     _, treqs, snaps = _snapshot_scenario(teng, TRequest, tcfg.vocab_size)
     assert [r.output_tokens for r in treqs] == \
         [r.output_tokens for r in jreqs]
+    # the port's one counter more: the fused dispatches' slots, the
+    # padded share's denominator (the reference counts only the pads)
+    assert set(teng.stats) - set(jeng.stats) == {"fused_slot_tokens"}
     for k in teng.stats:
-        assert teng.stats[k] == jeng.stats[k], k
+        if k != "fused_slot_tokens":
+            assert teng.stats[k] == jeng.stats[k], k
+    # (its value is held to each fused dispatch's tensors in
+    # test_torch_spans.py)
+    assert (teng.stats["fused_slot_tokens"] > 0) == \
+        (jeng.stats["fused_iterations"] > 0)
+    assert teng.stats["fused_slot_tokens"] >= \
+        teng.stats["fused_padded_tokens"]
     assert set(teng.state_store) == set(jeng.state_store)
     assert set(teng.kv_store) == set(jeng.kv_store)
     assert treqs[0].output_tokens == treqs[1].output_tokens
