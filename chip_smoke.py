@@ -36,7 +36,11 @@ From the root of a checkout. It
    the full width of smollm-360m (32 layers, d 960, 15/5 heads, bf16,
    random weights from the seed) on two engine instances, and checks
    that every request finished with prefix reuse, on the card, through
-   the kernel (its launch count = layers x model dispatches);
+   the kernel (its launch count = layers x model dispatches), every
+   pure-decode step a CUDA graph replay; each replay runs again under
+   torch.profiler (one paged split kernel a layer a replay in the
+   device trace) and beside the eager forward on its inputs (the same
+   tokens on every lane);
 5. drives the host KV tier at full smollm-360m width: two instances under
    E2 whose device pools hold about a quarter of a thrashing 6-prefix
    working set (videoqa/loogle-style interleaved rounds), with host
@@ -60,9 +64,12 @@ From the root of a checkout. It
    decode ran the split-K decode kernel (32 launches a decode batch) and
    never the paged one, and the paged plane the reverse; prints steps,
    dispatches, reuse, wall, peak memory and the share of tokens on which
-   the two planes agree; then holds each of the two kernels against its
-   plain version on every input (shapes, lens, page tables) its plane
-   gave it, times the last of each lane count; then, on the same weights
+   the two planes agree; holds the paged plane's pure-decode graph
+   replays to the device trace and to the eager forward as in step 4,
+   at mistral-7b's width, the eager calls' paged inputs kept; then holds
+   each of the two kernels against its plain version on every input
+   (shapes, lens, page tables) its plane gave it, fused and pure-decode
+   steps alike, times the last of each lane count; then, on the same weights
    (after the TP phase of step 10), profiles one paged fused engine with
    the cluster simulator's batching (chunk 512, 4096 tokens a step):
    steps of 1, 2, 4 and 8 distinct 512-token prompts (no reuse) and
@@ -958,7 +965,9 @@ def serve_phase(torch, PA, serve):
     args = serve.parse_args(SERVE_ARGS)
     torch.cuda.reset_peak_memory_stats()
     PA.paged_decode_attention.launches = 0
-    res = serve.run(args)
+    replays = []
+    with tap_graph_replays(replays):
+        res = serve.run(args)
     launches = PA.paged_decode_attention.launches
     serve.report(args, res)
     cl, cfg = res["cluster"], res["cfg"]
@@ -988,9 +997,26 @@ def serve_phase(torch, PA, serve):
     check(launches == cfg.n_layers * dispatches,
           f"kernel launches {launches} != {cfg.n_layers} x "
           f"{dispatches} model dispatches")
+    n_replays = sum(e.stats["decode_graph_replays"] for e in engines)
+    check(n_replays == len(replays) and n_replays == sum(
+        e.stats["model_dispatches"] - e.stats["fused_iterations"]
+        for e in engines),
+        f"serve: {n_replays} replays, {len(replays)} tapped, not every "
+        "pure-decode dispatch")
+    check(n_replays > 0, "serve: no pure-decode step was replayed")
+    graphs = {}
+    for i, e in cl.engines.items():
+        mine = {id(g) for g in e._graphs.graphs.values()}
+        own = [r for r in replays if id(r[0]) in mine]
+        if own:
+            graphs[i] = hold_replays(torch, PA, e, own,
+                                     {"decode": [], "paged": []},
+                                     f"serve instance {i}")
+    replays.clear()
     wall = res["wall"]
     out = dict(wall_s=wall, engine_steps=iters, steps_per_s=iters / wall,
                model_dispatches=dispatches, kernel_launches=launches,
+               decode_graphs=graphs,
                reused_tokens=reused,
                prefilled_tokens=sum(e.stats["prefilled_tokens"]
                                     for e in engines),
@@ -1325,6 +1351,71 @@ def tap_decode_kernels(torch, per_dispatch, served):
               f"{kind}: {n} calls are not {per_dispatch} a dispatch")
 
 
+@contextlib.contextmanager
+def tap_graph_replays(replays):
+    """While open, each replay of a pure-decode CUDA graph
+    (``serving/decode_graph.py``) keeps (its graph, a clone of its static
+    inputs, made on the device without a wait) in ``replays``."""
+    from repro_torch.serving import decode_graph as DG
+    orig = DG.DecodeGraphs.__dict__["replay"]
+
+    def replay(g):
+        replays.append((g, g.inputs.clone()))
+        return orig.__func__(g)
+    DG.DecodeGraphs.replay = staticmethod(replay)
+    try:
+        yield
+    finally:
+        DG.DecodeGraphs.replay = orig
+
+
+def hold_replays(torch, PA, eng, replays, served, name):
+    """Hold the graphs a served engine replayed against its eager forward
+    at the engine's width. Every replay in ``replays``
+    (``tap_graph_replays``) runs again on its inputs under torch.profiler,
+    which has to see one launch of the paged split kernel a layer a
+    replay (what a replay adds to the wrapper's count is not a launch).
+    Then each runs again beside ``api.decode_paged`` on the same inputs,
+    back to back on the pool as it is, the eager call's paged inputs
+    kept in ``served["paged"]`` (``tap_decode_kernels``): the two give
+    the same token on every lane. Returns the numbers checked."""
+    from torch.profiler import ProfilerActivity, profile
+    check(len(replays) > 0, f"{name}: no pure-decode step was replayed")
+    n_layers, P = eng.model_cfg.n_layers, eng._pages_per_req
+    launches0 = PA.paged_decode_attention.launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for g, inputs in replays:
+            g.inputs.copy_(inputs)
+            g.graph.replay()
+        torch.cuda.synchronize()
+    traced = sum(k[1] for k in device_kernels(torch, prof)
+                 if "paged_split_kernel" in k[2])
+    check(traced == n_layers * len(replays),
+          f"{name}: {len(replays)} replays launched the paged split kernel "
+          f"{traced} times in the device trace, not {n_layers} a replay")
+    lanes = differ = 0
+    with torch.no_grad(), tap_decode_kernels(torch, n_layers, served):
+        for g, inputs in replays:
+            Bb = g.out.shape[0]
+            g.inputs.copy_(inputs)
+            g.graph.replay()
+            got = g.out.clone()
+            # the packed decode batch: tokens, positions, page table (the
+            # chunk half is empty)
+            want, _ = eng.api.decode_paged(
+                eng.params, eng.pages,
+                {"tokens": inputs[:Bb], "pos": inputs[Bb:2 * Bb],
+                 "page_table": inputs[2 * Bb:].view(Bb, P)})
+            lanes += Bb
+            differ += int((got != want).sum())
+    PA.paged_decode_attention.launches = launches0
+    check(differ == 0, f"{name}: replayed tokens differ from the eager "
+          f"forward's on {differ} of {lanes} lanes")
+    return dict(replays=len(replays), lanes=lanes,
+                paged_split_launches_traced=traced)
+
+
 def served_shapes(torch, DA, PA, flush, served, model):
     """Hold each kernel against its plain version on every input the
     main path gave it (``tap_decode_kernels``): the same shapes, lens and
@@ -1433,7 +1524,9 @@ def mistral_phase(torch, DA, PA, cfg, zoo, Engine, EngineConfig, Request,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         DA.decode_attention.launches = PA.paged_decode_attention.launches = 0
-        with tap_decode_kernels(torch, cfg.n_layers, served):
+        replays = []
+        with tap_decode_kernels(torch, cfg.n_layers, served), \
+                tap_graph_replays(replays):
             t0 = time.perf_counter()
             steps = serve_waves(eng, reqs)
             torch.cuda.synchronize()
@@ -1468,6 +1561,15 @@ def mistral_phase(torch, DA, PA, cfg, zoo, Engine, EngineConfig, Request,
             steps_per_s=steps / wall,
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
             paged_decode_launches=paged_l, split_k_decode_launches=split_k)
+        check(len(replays) == st["decode_graph_replays"] == (
+            st["model_dispatches"] - st["fused_iterations"]
+            if eng.paged else 0),
+            f"{name}: {len(replays)} replays tapped, "
+            f"{st['decode_graph_replays']} counted")
+        if eng.paged:
+            out[plane]["decode_graphs"] = hold_replays(
+                torch, PA, eng, replays, served, name)
+        replays.clear()
         outputs[plane] = [list(r.output_tokens) for r in reqs]
         del eng
     # bf16 with two reduction orders: reported, not gated
@@ -2061,7 +2163,9 @@ def mistral_tp_phase(torch, DA, PA, cfg, params, Engine, EngineConfig,
     dispatches, each shard's pool bytes 1/tp of TP 1's and weight bytes
     1/tp up to the replicated norms, every kernel input the shards gave
     (first layer of each dispatch) within the bf16 bound of its plain
-    version, and the first dispatch's float32 logits of the model cut to
+    version (TP 1, one card, replays its pure-decode steps: they are
+    held as the mistral phase holds its own, ``hold_replays``), and the
+    first dispatch's float32 logits of the model cut to
     TP_LOGIT_LAYERS layers within TP_LOGIT_TOL of TP 1's (bf16 at that
     depth and at full depth printed only, with the share of tokens that
     agree); prints the plans, launches, bytes, walls and shard timers."""
@@ -2076,11 +2180,12 @@ def mistral_tp_phase(torch, DA, PA, cfg, params, Engine, EngineConfig,
         torch.cuda.synchronize()
         shard_s = time.perf_counter() - t0
         reqs = mistral_requests(Request, gen_workload, cfg.vocab_size)
-        first, served = [], {"decode": [], "paged": []}
+        first, served, replays = [], {"decode": [], "paged": []}, []
         PA.paged_decode_attention.launches = 0
         PA.paged_decode_partials.launches = PA.lse_merge_partials.launches = 0
         with tap_first_logits(torch, first), \
-                tap_decode_kernels(torch, cfg.n_layers * tp, served):
+                tap_decode_kernels(torch, cfg.n_layers * tp, served), \
+                tap_graph_replays(replays):
             t0 = time.perf_counter()
             steps = serve_waves(eng, reqs)
             torch.cuda.synchronize()
@@ -2124,6 +2229,15 @@ def mistral_tp_phase(torch, DA, PA, cfg, params, Engine, EngineConfig,
             reused_tokens=st["reused_tokens"],
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
         check(not served["decode"], f"{name}: the split-K kernel ran")
+        # TP 1 is one card: its pure-decode steps replay graphs
+        check(len(replays) == st["decode_graph_replays"]
+              and (len(replays) > 0) == (plan is None),
+              f"{name}: {len(replays)} replays tapped, "
+              f"{st['decode_graph_replays']} counted")
+        if replays:
+            out[tp]["decode_graphs"] = hold_replays(torch, PA, eng, replays,
+                                                    served, name)
+            replays.clear()
         rows = served_shapes(torch, DA, PA, flush,
                              {"paged": served["paged"]}, f"mistral-7b tp{tp}")
         out[tp]["served"] = rows.get("paged", [])

@@ -4,6 +4,7 @@ code has them, so the two agree in float32 and round alike in bf16."""
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -54,13 +55,21 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (out * weight.float()).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def rope_freq(d: int, theta: float, device: torch.device) -> torch.Tensor:
+    """RoPE's inverse frequencies theta ** (-2i / d), float32 [d / 2], made
+    on ``device`` once per (d, theta, device). theta is filled in on the
+    device, not copied from the host: a host-to-device copy of a Python
+    scalar waits for the device, once a call of ``rope``."""
+    exps = -torch.arange(0, d, 2, dtype=torch.float32, device=device) / d
+    return torch.pow(torch.full((), theta, dtype=torch.float32,
+                                device=device), exps)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
     """x: [..., S, H, D]; positions: broadcastable to [..., S]."""
-    d = x.shape[-1]
-    exps = -torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                  device=x.device), exps)          # [D/2]
+    freq = rope_freq(x.shape[-1], theta, x.device)                 # [D/2]
     angles = positions[..., None].float() * freq                  # [..., S, D/2]
     angles = angles[..., None, :]                                 # [..., S, 1, D/2]
     cos, sin = torch.cos(angles), torch.sin(angles)

@@ -12,7 +12,7 @@ JAX package's ``serving/batch.py``).
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,18 +63,26 @@ def bucket(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
-def lower_arrays(arrays, device) -> Tuple[torch.Tensor, ...]:
+def lower_arrays(arrays, device, out: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, ...]:
     """int32 host arrays -> int32 tensors on ``device`` in ONE
     host-to-device copy: the arrays are packed into one (pinned, on a
     CUDA target) host buffer, copied once, and returned as views into
-    the device copy."""
+    the device copy. ``out``: a flat int32 device buffer of exactly the
+    packed size that the copy lands in (a CUDA graph's static inputs)."""
     device = torch.device(device)
     arrs = [np.ascontiguousarray(a, dtype=np.int32) for a in arrays]
     sizes = [a.size for a in arrs]
     host = torch.empty(sum(sizes), dtype=torch.int32,
                        pin_memory=device.type == "cuda")
     np.concatenate([a.reshape(-1) for a in arrs], out=host.numpy())
-    dev = host.to(device, non_blocking=True)
+    if out is None:
+        dev = host.to(device, non_blocking=True)
+    else:
+        if out.shape != host.shape or out.dtype != torch.int32:
+            raise ValueError(f"lower_arrays: out {tuple(out.shape)} "
+                             f"{out.dtype}, packed {tuple(host.shape)} int32")
+        dev = out.copy_(host, non_blocking=True)
     views, ofs = [], 0
     for a, n in zip(arrs, sizes):
         views.append(dev[ofs:ofs + n].view(a.shape))

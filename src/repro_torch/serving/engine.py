@@ -10,7 +10,9 @@ package's ``serving/engine.py``). Two data planes share the scheduling:
     boundary falls mid-page. Iterations with prefill work run FUSED:
     every ready prefill chunk and every decode slot packed into one
     dispatch (``_run_mixed``). Pure-decode iterations run the bucketed
-    decode step (``_decode_batch_paged``). Radix-tree nodes alias the
+    decode step (``_decode_batch_paged``), on a card replayed as one CUDA
+    graph per bucket where the stack allows (``serving/decode_graph.py``:
+    single-card, dense FFNs, no draft model). Radix-tree nodes alias the
     pool through per-node page tables; eviction maps to ``release``.
   * DENSE (``paged=False``, the reference plane) — per-request linear
     caches at ``max_context``. Cached KV slabs are copied into a new
@@ -101,6 +103,7 @@ from ..launch import sharding as shard_lib
 from ..launch.mesh import make_serve_mesh
 from ..models import layers, zoo
 from ..models.transformer import layer_plan
+from . import decode_graph
 from .batch import ForwardBatch, ModelWorkerBatch, bucket, lower_arrays
 from .faults import CircuitBreaker, InstanceCrashed
 from .kv_cache import PagedKVPool
@@ -307,6 +310,9 @@ class Engine:
              "spec_proposed_tokens": 0, "spec_accepted_tokens": 0,
              "spec_rejected_tokens": 0, "spec_verify_lanes": 0,
              "spec_draft_dispatches": 0, "spec_degraded": 0,
+             # pure-decode dispatches replayed as a CUDA graph, and the
+             # graphs captured (serving/decode_graph.py)
+             "decode_graph_replays": 0, "decode_graph_captures": 0,
              # tensor-parallel engines only (module doc)
              "shard_dma_seconds": 0.0, "collective_seconds": 0.0},
             derived={"demote_overlap_frac":
@@ -335,8 +341,13 @@ class Engine:
         self._prefetch_inflight: List[Tuple[dict, int]] = []
         # the copy stream's event of this step's prefetch scatter
         self._prefetch_event = None
+        # the pure-decode CUDA graphs: None where steps stay eager
+        self._graphs: Optional[decode_graph.DecodeGraphs] = None
         if self.paged:
             self._init_paged()
+            if decode_graph.eligible(self):
+                self._graphs = decode_graph.DecodeGraphs(self)
+                self._graphs.capture()
         else:
             self._init_dense()
 
@@ -357,6 +368,8 @@ class Engine:
             # a prefetch scatter may still be writing the old pool
             self.copy_stream.synchronize()
         self.pages = None            # drop the old pool before allocating
+        if self._graphs is not None:
+            self._graphs.drop()      # they hold the old pool's addresses
         self.draft = None
         if self.mesh is not None:
             self.plan = self.api.shard_plan(self.mesh, n_pages, ps)
@@ -417,12 +430,13 @@ class Engine:
 
     # ---- tensor-parallel instances: host/device boundary -------------------
 
-    def _lower(self, arrays):
-        """int32 host arrays -> tensors on shard 0's device in one copy;
-        on a submesh timed into ``shard_dma_seconds`` (each shard reads
-        the batch there or gets its copy inside the dispatch)."""
+    def _lower(self, arrays, out: Optional[torch.Tensor] = None):
+        """int32 host arrays -> tensors on shard 0's device in one copy
+        (into ``out`` when given); on a submesh timed into
+        ``shard_dma_seconds`` (each shard reads the batch there or gets
+        its copy inside the dispatch)."""
         if self.mesh is None:
-            return lower_arrays(arrays, self.device)
+            return lower_arrays(arrays, self.device, out)
         t0 = time.perf_counter()
         out = lower_arrays(arrays, self.device)
         if self.device.type == "cuda":
@@ -1482,7 +1496,10 @@ class Engine:
 
     def _decode_batch_paged(self, dec: List[Request]) -> None:
         """Slot/bucket decode: live requests fill the first B lanes of a
-        power-of-two bucket; padding lanes write into the scratch page."""
+        power-of-two bucket; padding lanes write into the scratch page.
+        Where the engine holds decode graphs the step's inputs land in
+        the bucket's static buffers and its graph replays; else the
+        forward runs eagerly."""
         tel = self.telemetry
         if tel is not None:
             t = time.perf_counter()
@@ -1497,22 +1514,26 @@ class Engine:
             pos[i] = r.prompt_len + len(r.output_tokens) - 1
         pt = self._page_table_rows(
             [("req", r.request_id) for r in dec], n_rows=Bb)
-        wb = ModelWorkerBatch(np.zeros((0, 1), np.int32),
-                              np.zeros(0, np.int32), np.zeros(0, np.int32),
-                              np.zeros((0, self._pages_per_req), np.int32),
-                              tokens, pos, pt)
-        fb = ForwardBatch(*self._lower(wb.arrays()))
+        graph = self._graphs.get(Bb) if self._graphs is not None else None
+        fb = ForwardBatch(*self._lower(
+            decode_graph.decode_batch(tokens, pos, pt).arrays(),
+            graph.inputs if graph is not None else None))
         if tel is not None:
             t = self._begin_dispatch(tel, t)
         try:
-            nxt, self.pages = self.api.decode_paged(
-                self.params, self.pages,
-                {"tokens": fb.dec_tokens, "pos": fb.dec_pos,
-                 "page_table": fb.dec_page_table}, plan=self.plan)
+            if graph is not None:
+                nxt = self._graphs.replay(graph)
+            else:
+                nxt, self.pages = self.api.decode_paged(
+                    self.params, self.pages,
+                    {"tokens": fb.dec_tokens, "pos": fb.dec_pos,
+                     "page_table": fb.dec_page_table}, plan=self.plan)
         finally:
             if tel is not None:
                 self._end_dispatch(tel, t)
         nxt = self._fetch(nxt)
+        if graph is not None:
+            self.stats["decode_graph_replays"] += 1
         for i, r in enumerate(dec):
             self.live[r.request_id]["next"] = int(nxt[i])
         self.stats["decode_steps"] += B

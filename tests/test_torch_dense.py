@@ -289,6 +289,10 @@ def _model(arch):
     return _MODELS[arch]
 
 
+# the engine counters the port has and the reference has not
+PORT_ONLY = {"fused_slot_tokens", "decode_graph_replays",
+             "decode_graph_captures"}
+
 ECONF = dict(max_context=64, chunk_size=16, max_batch_tokens=64,
              capacity_tokens=4096, page_size=16)
 
@@ -331,11 +335,12 @@ def _engines(arch, paged, jit_extend=True):
 
 def _same_engines(jeng, teng):
     assert teng.paged == jeng.paged
-    # the port's one counter more: the fused dispatches' slots, the
-    # padded share's denominator (the reference counts only the pads)
-    assert set(teng.stats) - set(jeng.stats) == {"fused_slot_tokens"}
+    # the port's counters more: the fused dispatches' slots, the padded
+    # share's denominator (the reference counts only the pads), and the
+    # pure-decode CUDA graphs' replays and captures
+    assert set(teng.stats) - set(jeng.stats) == PORT_ONLY
     for k in teng.stats:
-        if k != "fused_slot_tokens":
+        if k not in PORT_ONLY:
             assert teng.stats[k] == jeng.stats[k], k
     # (its value is held to each fused dispatch's tensors in
     # test_torch_spans.py)
