@@ -7,7 +7,7 @@ import gc
 import subprocess
 import sys
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -36,7 +36,9 @@ class RunView:
     device: Optional[devtrace.DeviceSlice]
     spans: List[Tuple[str, float, float]]
     submit_s: List[float]
-    counters: Dict[str, Dict[str, float]]
+    counters: Dict[str, Dict[str, float]]   # summed over the instances
+    chips: int = 1                          # cards, one instance each
+    requests: Dict[str, Any] = field(default_factory=dict)  # e2e()
 
 
 def power_limit() -> str:
@@ -51,8 +53,11 @@ def power_limit() -> str:
 
 
 def build(cell: Cell, seed: int, device):
-    """The run's weights and the program's cluster on ``device``: one
-    paged fused engine instance under E2, as every cell serves."""
+    """The run's weights and the program's cluster: one paged fused
+    engine instance a chip under E2, as every cell serves. With one chip
+    the instance runs on ``device``; with ``chips`` n, n single-card
+    instances on the first n cards (on the CPU, n instances beside each
+    other), the weights drawn on the first and copied to the others."""
     from repro_torch.core.cost_model import cost_model_for
     from repro_torch.serving.cluster import ClusterRuntime
     from repro_torch.serving.engine import EngineConfig
@@ -65,9 +70,14 @@ def build(cell: Cell, seed: int, device):
         max_batch_requests=eng["max_batch_requests"],
         capacity_tokens=eng["capacity_tokens"], page_size=eng["page_size"],
         paged=True)
-    return params, ClusterRuntime(pcfg, params, 1, econf,
+    kw = {}
+    if cell.chips > 1:
+        kw = dict(chips_per_instance=[1] * cell.chips,
+                  devices=(["cpu"] * cell.chips if device == "cpu" else
+                           [f"cuda:{c}" for c in range(cell.chips)]))
+    return params, ClusterRuntime(pcfg, params, cell.chips, econf,
                                   cost_model=cost_model_for("mistral-7b"),
-                                  policy="e2", device=device)
+                                  policy="e2", device=device, **kw)
 
 
 def serve_to_end(cluster, reqs, max_steps: int = 100000) -> None:
@@ -81,13 +91,25 @@ def serve_to_end(cluster, reqs, max_steps: int = 100000) -> None:
     raise RuntimeError("requests served before the clock did not finish")
 
 
-def first_requests(cluster, make_request, vocab: int, seed: int) -> None:
-    """Serve two short requests to the end before the clock starts, so
-    the program's kernels are built and loaded in set-up."""
+def first_requests(cluster, make_request, vocab: int, seed: int,
+                   rounds: int = 4) -> None:
+    """Serve two short requests an instance to the end before the clock
+    starts, so the program's kernels are built and loaded on every card
+    in set-up. E2 spreads requests that share nothing over the
+    instances; where an instance still served nothing, serve another
+    round, and after ``rounds`` fail set-up: that instance would load
+    its kernels inside the window."""
     rng = np.random.default_rng([seed, 4])
-    serve_to_end(cluster, [
-        make_request(tuple(int(t) for t in rng.integers(0, vocab, 40)), 4)
-        for _ in range(2)])
+    for _ in range(rounds):
+        serve_to_end(cluster, [
+            make_request(tuple(int(t) for t in rng.integers(0, vocab, 40)),
+                         4)
+            for _ in range(2 * len(cluster.engines))])
+        idle = [i for i, e in cluster.engines.items()
+                if not e.stats["iterations"]]
+        if not idle:
+            return
+    raise RuntimeError(f"instances {idle} served nothing in set-up")
 
 
 def prime(cluster, make_request, planned) -> List[Any]:
@@ -170,13 +192,14 @@ def serve_window(cell: Cell, seed: int, seconds: int, device="cuda",
     if trace:
         dtype = torch.device(device).type
         devtrace.warm(dtype)
-        profiler = devtrace.DeviceProfiler(dtype)
+        profiler = devtrace.DeviceProfiler(dtype, cell.chips)
+    routed = cluster.engines[0].model_cfg.n_experts
     loop = serve.Loop(
-        cluster, cluster.engines[0], make_request, planned,
+        cluster, make_request, planned,
         (warm, warm + seconds), DRAIN_LIMIT, trace=trace,
         profile_at=warm + PROFILE_AT * seconds, profile_steps=PROFILE_STEPS,
         profile_seconds=PROFILE_SECONDS,
-        moe_stats=layers.MOE_STATS if cfg.get("num_local_experts") else None)
+        moe_stats=layers.MOE_STATS if routed else None)
     del cluster
     # the plan and set-up's objects stay out of the collector's passes
     # while the clock runs
@@ -188,8 +211,11 @@ def serve_window(cell: Cell, seed: int, seconds: int, device="cuda",
     finally:
         gc.unfreeze()
     if device != "cpu":
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated(device)
+        # the fullest card's
+        peak = 0
+        for c in range(cell.chips):
+            torch.cuda.synchronize(c)
+            peak = max(peak, torch.cuda.max_memory_allocated(c))
     else:
         peak = 0
     return Served(params, loop, t_loop, warm, int(peak))
@@ -225,7 +251,7 @@ def run(cell: Cell, seed: int, seconds: int, trace: bool, t_start: float,
         view = RunView(Dims.of(cfg), [s for s in win if not s.profiled],
                        [s for s in loop.steps if s.profiled],
                        loop.device_slice, loop.spans, loop.submit_s,
-                       loop.counters)
+                       loop.counters, cell.chips, res)
         bad = sum(not s.counted for s in win)
         log(f"{len(win)} window steps, {len(view.slice_steps)} in the "
             f"device slice; {bad} whose chunk starts were inferred apart "

@@ -13,8 +13,11 @@ caller passed at the start of a step and are not read.
 With ``trace`` on, the loop also records a span around each call into the
 program (submit, step), around its own stamping and its waits for
 arrivals, each step's composition (the prefill chunks and decode lanes it
-carried, from the requests' progress and the engine's counters) and, for
+carried, from the requests' progress and the engines' counters) and, for
 a bounded slice of steady steps, a device trace (``devtrace``).
+
+A step is one ``ClusterRuntime.step``: every instance's engine step. The
+engines' counters are read as their sums over the instances.
 """
 
 from __future__ import annotations
@@ -50,6 +53,16 @@ class StepRecord:
     moe_syncs: int
     profiled: bool
     counted: bool                       # chunks add up to the counter
+    decode_inst: List[int] = field(default_factory=list)  # each lane's
+
+    def decode_calls(self) -> List[List[int]]:
+        """The decode lanes' valid keys, one list an instance: what each
+        instance's decode attention call carried."""
+        calls: Dict[int, List[int]] = {}
+        for n, i in zip(self.decode_lens,
+                        self.decode_inst or [0] * len(self.decode_lens)):
+            calls.setdefault(i, []).append(n)
+        return list(calls.values())
 
     def flops(self, dims: F.Dims) -> float:
         """Tokens from the engine's counter; attention pairs from the
@@ -62,10 +75,20 @@ class StepRecord:
         return F.step_flops(dims, tokens, self.produced, pairs)
 
 
+COUNTED = ("reused_tokens", "prefilled_tokens", "decode_steps", "iterations",
+           "model_dispatches", "fused_iterations")
+
+
+def engine_sums(cluster, keys) -> Dict[str, float]:
+    """Each of the engines' counters ``keys``, summed over the cluster's
+    instances."""
+    engines = list(cluster.engines.values())
+    return {k: sum(e.stats[k] for e in engines) for k in keys}
+
+
 @dataclass
 class Loop:
     cluster: Any
-    engine: Any
     make_request: Any                   # (tokens, max_new) -> Request
     planned: List[Any]
     window: Tuple[float, float]         # [open, close) on the loop clock
@@ -84,11 +107,13 @@ class Loop:
     device_slice: Any = None
     end: float = 0.0
 
+    @property
+    def engine(self):
+        """The first instance's engine (for tools that read one)."""
+        return self.cluster.engines[0]
+
     def _snapshot(self) -> Dict[str, float]:
-        st = self.engine.stats
-        snap = {k: st[k] for k in ("reused_tokens", "prefilled_tokens",
-                                   "decode_steps", "iterations",
-                                   "model_dispatches", "fused_iterations")}
+        snap = engine_sums(self.cluster, COUNTED)
         if self.moe_stats is not None:
             snap["moe_host_syncs"] = self.moe_stats["host_syncs"]
         return snap
@@ -181,7 +206,7 @@ class Loop:
     def _record(self, inflight, stamp, before, t0, t1, profiled
                 ) -> StepRecord:
         """Stamp the step's tokens and read what it carried."""
-        chunks, lens, produced = [], [], 0
+        chunks, lens, inst, produced = [], [], [], 0
         for tr in inflight.values():
             r = tr.req
             k, seen = len(r.output_tokens), len(tr.stamps)
@@ -189,6 +214,7 @@ class Loop:
                 produced += k - seen
                 if seen:
                     lens.append(r.prompt_len + seen)
+                    inst.append(r.instance)
                 tr.stamps.extend([stamp] * (k - seen))
             pf = min(r.prefill_done, r.prompt_len)
             if pf > tr.pf:
@@ -202,4 +228,4 @@ class Loop:
         syncs = (after["moe_host_syncs"] - before["moe_host_syncs"]
                  if self.moe_stats is not None else 0)
         return StepRecord(t0, t1, kind, pre, chunks, lens, produced, syncs,
-                          profiled, sum(n for _, n in chunks) == pre)
+                          profiled, sum(n for _, n in chunks) == pre, inst)

@@ -23,6 +23,7 @@ import heapq
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 from . import stats
+from .devtrace import mean_by_card
 
 Span = Tuple[str, float, float]
 
@@ -89,7 +90,12 @@ def idle_by_innermost(device, spans: Iterable[Span]) -> Dict[str, float]:
     """Idle device seconds of the slice, each stretch put down to the
     innermost span that covers it ("other" where none does): the parts
     sum to the slice's idle time. With spans that do not overlap, the same
-    as ``DeviceSlice.idle_by_host``."""
+    as ``DeviceSlice.idle_by_host``. On several cards, the mean over the
+    cards."""
+    if device.chips > 1:
+        spans = list(spans)
+        return mean_by_card([idle_by_innermost(c, spans)
+                             for c in device.cards()])
     idle = stats.gaps(((s, e) for _, s, e in device.ops), device.t0,
                       device.t1)
     pieces = _innermost(sorted((s, e, n) for n, s, e in spans

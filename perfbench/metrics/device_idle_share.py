@@ -1,6 +1,7 @@
 """device_idle_share: the share of the traced slice's wall in which no
 operation ran on the device (1 - union of the profiler's device
-intervals over the slice), in %."""
+intervals over the slice), in %; on several cards, the mean of each
+card's."""
 
 
 def read(run):

@@ -1,5 +1,6 @@
-"""launches_per_step: device kernels in the profiler's trace of the slice
-(copies and fills not counted) per model step of the slice."""
+"""launches_per_step: device kernels in the profiler's trace of the slice,
+on every card (copies and fills not counted), per cluster step of the
+slice (every instance's engine step)."""
 
 
 def read(run):

@@ -8,4 +8,5 @@ def read(run):
     wall = sum(s.t1 - s.t0 for s in steps)
     if wall <= 0:
         return None
-    return 100.0 * sum(s.flops(run.dims) for s in steps) / (wall * PEAK_FLOPS)
+    ops = sum(s.flops(run.dims) for s in steps)
+    return 100.0 * ops / (wall * PEAK_FLOPS * run.chips)

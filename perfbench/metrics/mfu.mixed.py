@@ -1,8 +1,9 @@
 """mfu.mixed: model operations of the window's prefilling steps over their
-host time and the H100's bf16 peak, in %. Operations are the benchmark's
-own count (``benchlib.flops.step_flops``): every token through each
-layer's active weights, the output head for each token emitted, attention
-over the visible (query, key) pairs."""
+host time and the bf16 peak of the cell's H100s (chips x peak), in %.
+Operations are the benchmark's own count (``benchlib.flops.step_flops``):
+every token through each layer's active weights, the output head for
+each token emitted, attention over the visible (query, key) pairs of the
+attention layers, each Mamba layer's scan."""
 
 from benchlib.flops import PEAK_FLOPS
 
@@ -12,4 +13,5 @@ def read(run):
     wall = sum(s.t1 - s.t0 for s in steps)
     if wall <= 0:
         return None
-    return 100.0 * sum(s.flops(run.dims) for s in steps) / (wall * PEAK_FLOPS)
+    ops = sum(s.flops(run.dims) for s in steps)
+    return 100.0 * ops / (wall * PEAK_FLOPS * run.chips)

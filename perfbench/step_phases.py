@@ -42,8 +42,9 @@ def measure(cell, seed: int, seconds: int, device="cuda",
 
     def with_slots(loop):
         snap = snapshot(loop)
-        snap.update((k, loop.engine.stats[k]) for k in COUNTERS
-                    if k in loop.engine.stats)
+        engines = loop.cluster.engines.values()
+        snap.update(serve.engine_sums(loop.cluster, [
+            k for k in COUNTERS if all(k in e.stats for e in engines)]))
         return snap
 
     with mock.patch.object(cluster, "ClusterRuntime", functools.partial(
@@ -56,7 +57,7 @@ def measure(cell, seed: int, seconds: int, device="cuda",
     view = C.RunView(Dims.of(cell.config), [s for s in win if not s.profiled],
                      [s for s in loop.steps if s.profiled],
                      loop.device_slice, loop.spans, loop.submit_s,
-                     loop.counters)
+                     loop.counters, cell.chips)
     res = C.e2e(loop.tracked, loop.end)
     out = {"workload": cell.name, "seed": seed, "telemetry": telemetry}
     out.update({k: res.get(k) for k in ("ttft_p95_ms", "tpot_p50_ms",

@@ -22,9 +22,9 @@ def read(run):
 
 
 def make(tmp: Path, dtype="float32", moe=False, layers=2, d=64,
-         limits=None) -> Path:
+         limits=None, chips=1) -> Path:
     """``limits``: the compared numbers' limits (default the tiny
-    model's own, tighter than any cell's)."""
+    model's own, tighter than any cell's); ``chips``: the cell's."""
     bench = tmp / "bench"
     for sub in ("metrics", "reference"):
         shutil.copytree(BENCH_DIR / sub, bench / sub)
@@ -56,8 +56,8 @@ def make(tmp: Path, dtype="float32", moe=False, layers=2, d=64,
     (bench / "traffic" / "tiny-tb.json").write_text(json.dumps(mix))
     b = json.loads((ROOT / "BENCHMARK.json").read_text())
     b["workloads"] = [{"name": "tiny.tb", "config": "tiny",
-                       "traffic": "tiny-tb", "chips": 1, "why": "a test"}]
-    for m in b["per_layer"]:
+                       "traffic": "tiny-tb", "chips": chips, "why": "a test"}]
+    for m in b["end_to_end"] + b["per_layer"]:
         if "workloads" in m:
             m["workloads"] = ["tiny.tb"]
     b["per_layer"].append({"name": "tokens_per_step", "unit": "tokens/step",

@@ -33,14 +33,30 @@ def test_the_traced_run_reports_the_per_layer_metrics(tiny):
     assert "tokens_per_step" in m           # the reader dropped in
     for k in ("route_ms", "reuse_share", "step_ms.mixed", "step_ms.decode",
               "mfu.mixed", "mfu.decode", "moe_syncs_per_step",
-              "launches_per_step", "device_idle_share"):
+              "launches_per_step", "device_idle_share",
+              "latency_p95_s.traced"):
         assert k in m, k
+    assert m["latency_p95_s.traced"]["value"] > 0
     assert 0 < m["reuse_share"]["value"] < 100
     assert "paged_decode_roofline" not in m  # no kernel runs on the CPU
     dev = out["device"]
     assert 0 < dev["busy_s"] <= dev["window_s"]
     assert out["breakdown"]["device_ops"] and out["breakdown"]["idle_gaps"]
     assert out["correct"] is True
+
+
+def test_the_tail_latency_is_end_to_end_in_mixtral_and_per_layer_in_mistral():
+    from benchlib.spec import load_cell
+    cells = {n: load_cell(n) for n in ("mistral-7b.toolbench",
+                                       "mixtral-8x22b-12l.toolbench")}
+    for name, c in cells.items():
+        e2e = {m["name"] for m in c.end_to_end}
+        layer = {m.name for m in c.per_layer}
+        mixtral = name.startswith("mixtral")
+        assert ("latency_p95_s" in e2e) == mixtral
+        assert ("latency_p95_s.traced" in layer) != mixtral
+        assert {"setup_s", "ttft_p95_ms", "tpot_p50_ms",
+                "latency_mean_s"} <= e2e
 
 
 def _skip_kv_writes(monkeypatch):
